@@ -19,7 +19,17 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 5. hlo — ``Frame.from_hlo`` over the golden HLO corpus on the card against
    ``NumpyBackend``; the kernel's launch count must rise on phases 4-5;
 6. solve — kripke's ``reference_sweep`` at the paper's per-rank size on the
-   card against the same run on the CPU.
+   card against the same run on the CPU;
+7. attention — the flash and decode kernels against their plain versions on
+   the card at olmo-1b's, deepseek-coder-33b's (GQA) and gemma-2b's (MQA,
+   head dim 256) shapes, a decode-style Sq < Sk case and an odd f32 case;
+   each case's median time, its bound, the plain version's time and
+   ``F.scaled_dot_product_attention``'s;
+8. serve — ``python -m repro_torch.serve_lm --arch olmo-1b --full`` at its
+   published width and depth (16 layers, d 2048): 4 prompts of 1024 tokens,
+   32 greedy tokens; exactly 16 flash and 496 decode launches; prefill and
+   the first 4 decode steps against the same model under ``ops.plain()``;
+   decode logits against the teacher-forced ``train_logits``.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -30,6 +40,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,12 +49,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 SEED = 20260808
 #: warm reductions per backend and kripke point, for a like-for-like median
 WARM_REDUCTIONS = 3
+#: the CUDA sources the main paths run (src/repro_torch/csrc/<name>.cu)
+KERNEL_SOURCES = ("segment_reduce", "flash_attention", "decode_attention")
+#: the TPU kernel each attention kernel replaces
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:81",
+    "decode_attention": "src/repro/kernels/decode_attention.py:66",
+}
 
 #: kripke's paper (Dane) points and weak-scale points: (decomp, params).
 _PAPER = dict(nx=16, ny=32, nz=32, n_octants=2, fuse_messages=False)
@@ -78,6 +97,22 @@ def memory_rate(card: str) -> tuple:
     return 3.35e12, "3.35 TB/s (H100 SXM datasheet)"
 
 
+def op_rate(card: str, dtype: torch.dtype) -> tuple:
+    """Datasheet dense peak (operations/s) for the card and input dtype.
+
+    bf16 inputs: the tensor cores' bf16 rate; f32 inputs: the f32 rate
+    outside the tensor cores (the f32 the kernels compute in).
+    """
+    pcie = "PCIe" in card
+    if dtype == torch.bfloat16:
+        if pcie:
+            return 756e12, "756 TFLOP/s bf16 dense (H100 PCIe datasheet)"
+        return 989e12, "989 TFLOP/s bf16 dense (H100 SXM datasheet)"
+    if pcie:
+        return 51e12, "51 TFLOP/s f32 (H100 PCIe datasheet)"
+    return 67e12, "67 TFLOP/s f32 (H100 SXM datasheet)"
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -97,6 +132,39 @@ def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+#: cycles of the sleep kernel that holds the stream while launches queue
+SLEEP_CYCLES = 400_000_000
+
+
+def device_ms(fn, runs: int) -> dict:
+    """Device time per call of ``fn()`` (ms), the launches queued up front.
+
+    A sleep kernel holds the stream while the host enqueues ``runs`` calls,
+    so the events time the device's work without the host's launch gaps
+    (what :func:`cuda_ms` sees for a call shorter than its Python overhead).
+    ``queued`` says whether the host finished enqueueing before the sleep
+    ended; if not, host gaps are in the time.
+    """
+    fn()
+    sleep_start = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    sleep_start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    end.synchronize()
+    return {
+        "ms": start.elapsed_time(end) / runs,
+        "queued": host_ms < sleep_start.elapsed_time(start),
+    }
 
 
 def spans_with_giant(rng, n: int, n_spans: int) -> tuple:
@@ -385,11 +453,417 @@ def solve_phase() -> dict:
     return {"shape": list(q.shape), "card_s": card_s, "cpu_s": cpu_s, "err": err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: flash cases: (label, B, Hq, Hkv, Sq, Sk, D, causal, dtype)
+FLASH_CASES = [
+    ("olmo-1b prefill", 4, 16, 16, 1024, 1024, 128, True, torch.bfloat16),
+    ("deepseek-coder-33b GQA", 1, 56, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("gemma-2b MQA", 1, 8, 1, 1024, 1024, 256, True, torch.bfloat16),
+    ("decode-style Sq < Sk", 2, 4, 4, 64, 256, 128, True, torch.bfloat16),
+    ("odd non-causal f32", 1, 2, 2, 33, 33, 32, False, torch.float32),
+]
+#: decode cases: (label, B, Hq, Hkv, S, kv_len, D, dtype)
+DECODE_CASES = [
+    ("olmo-1b decode", 4, 16, 16, 1056, 1040, 128, torch.bfloat16),
+    ("deepseek-coder-33b GQA decode", 8, 56, 8, 32768, 30000, 128, torch.bfloat16),
+]
+#: tests/test_kernels.py's tolerances: bf16 2e-2, f32 2e-5 (rtol = atol)
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def _attn_timings(kernel, plain, library) -> dict:
+    """Device ms of kernel, plain version and library (queued launches), and
+    the kernel's ms per call with the host's launch overhead (median of 20
+    calls, each timed alone)."""
+    k, p, lib = device_ms(kernel, 20), device_ms(plain, 5), device_ms(library, 20)
+    return {
+        "ms": k["ms"],
+        "plain_ms": p["ms"],
+        "library_ms": lib["ms"],
+        "call_ms": cuda_ms(kernel, 20),
+        "queued": k["queued"] and p["queued"] and lib["queued"],
+    }
+
+
+def _attn_row(label, kind, shape, dtype, got, want, lib_out, timings, work, card):
+    """Check kernel and library against the plain version; the case's row."""
+    tol = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"{kind} {label}: kernel differs from its plain version (max {err})")
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    if not torch.allclose(lib_out.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"{kind} {label}: sdpa differs from the plain version (max {lib_err})")
+    flops, nbytes = work
+    bw, _ = memory_rate(card)
+    peak, _ = op_rate(card, dtype)
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
+    row = {
+        "case": label,
+        "kind": kind,
+        "shape": shape,
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": err,
+        "sdpa_max_abs_err": lib_err,
+        **timings,
+        "flops": flops,
+        "bytes": nbytes,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
+    log(
+        f"attention {kind} {label} {shape} {row['dtype']}: ms={row['ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"plain_ms={row['plain_ms']:.3f} sdpa_ms={row['library_ms']:.4f} "
+        f"call_ms={row['call_ms']:.4f} queued={row['queued']} "
+        f"max_abs_err={err} sdpa_max_abs_err={lib_err}"
+    )
+    return row
+
+
+def attention_phase(card: str) -> tuple:
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return x.to(dtype)
+
+    flash_rows = []
+    for label, b, hq, hkv, sq, sk, d, causal, dtype in FLASH_CASES:
+        q = randn(b, hq, sq, d, dtype=dtype)
+        k, v = randn(b, hkv, sk, d, dtype=dtype), randn(b, hkv, sk, d, dtype=dtype)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        mask = None
+        if causal and sq != sk:
+            qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            mask = qpos >= torch.arange(sk, device=dev)[None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=hq != hkv,
+            )
+
+        timings = _attn_timings(
+            lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+            library,
+        )
+        # pairs of (query, key) the causal mask leaves: what this input needs
+        pairs = sq * (sk - sq) + sq * (sq + 1) // 2 if causal else sq * sk
+        es = q.element_size()
+        work = (4 * b * hq * d * pairs, (2 * b * hq * sq + 2 * b * hkv * sk) * d * es)
+        flash_rows.append(
+            _attn_row(label, "flash", [b, hq, hkv, sq, sk, d], dtype, got, want,
+                      library(), timings, work, card)
+        )
+        del q, k, v, got, want, mask
+    decode_rows = []
+    for label, b, hq, hkv, s, kv_len, d, dtype in DECODE_CASES:
+        q = randn(b, hq, 1, d, dtype=dtype)
+        k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
+        got = dec.decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        want = dec.decode_attention_plain(q, k, v, kv_len)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len], enable_gqa=hq != hkv
+            )
+
+        timings = _attn_timings(
+            lambda: dec.decode_attention(q, k, v, kv_len),
+            lambda: dec.decode_attention_plain(q, k, v, kv_len),
+            library,
+        )
+        es = q.element_size()
+        work = (4 * b * hq * d * kv_len, (2 * b * hq + 2 * b * hkv * kv_len) * d * es)
+        decode_rows.append(
+            _attn_row(label, "decode", [b, hq, hkv, s, kv_len, d], dtype, got, want,
+                      library(), timings, work, card)
+        )
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return flash_rows, decode_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: serve olmo-1b at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_ARGV = [
+    "--arch", "olmo-1b", "--full", "--batch", "4", "--prompt-len", "1024",
+    "--new-tokens", "32", "--seed", str(SEED),
+]
+#: the reduced olmo-1b (4 layers, d 128), where the logits rule is well posed
+SMALL_ARGV = [
+    "--arch", "olmo-1b", "--batch", "4", "--prompt-len", "64",
+    "--new-tokens", "8", "--seed", str(SEED),
+]
+#: a row whose top two attention scores lie closer than this (relative) is a
+#: tie that f32 rounding may break either way; both answers are right
+TIE_RTOL = 1e-4
+
+
+def _logits_diff(got, want, scale: float) -> dict:
+    """The tests/test_models.py rule: rtol 2e-2, atol 0.02 * max|logits|."""
+    return {
+        "max_abs_err": float((got - want).abs().max()),
+        "scale": scale,
+        "holds": bool(torch.allclose(got, want, rtol=2e-2, atol=0.02 * scale)),
+    }
+
+
+def end_to_end(model, res, prompts, n_new: int) -> dict:
+    """Served logits against the same model on the plain attention (prefill
+    and the first 4 steps) and against teacher forcing (every step)."""
+    from repro_torch.kernels import ops
+
+    n_prompt = prompts.shape[1]
+    out = {}
+    with ops.plain():
+        logits, caches = model.prefill({"tokens": prompts}, s_max=n_prompt + n_new)
+        scale = float(logits.abs().max())
+        out["prefill vs plain"] = _logits_diff(res.prefill_logits, logits, scale)
+        for t in range(min(4, n_new - 1)):
+            tok = res.tokens[:, t : t + 1]
+            logits, caches = model.decode(caches, tok, n_prompt + t)
+            diff = _logits_diff(res.decode_logits[t], logits, scale)
+            out[f"decode {t} vs plain"] = diff
+    del caches, logits
+    seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
+    full, _ = model.train_logits({"tokens": seq})
+    scale = float(full.abs().max())
+    want = full[:, n_prompt - 1]
+    diff = _logits_diff(res.prefill_logits[:, 0], want, scale)
+    out["prefill vs teacher forcing"] = diff
+    for t, step in enumerate(res.decode_logits):
+        diff = _logits_diff(step[:, 0], full[:, n_prompt + t], scale)
+        out[f"decode {t} vs teacher forcing"] = diff
+    return out
+
+
+def _scores(q, k, mask) -> torch.Tensor:
+    """The plain versions' f32 scores (B, Hq, Sq, Sk), masked to -1e30."""
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1) if rep > 1 else k
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    return torch.where(mask, s, -1e30)
+
+
+class ShadowAttention:
+    """Run every attention call of the model on the kernel and, on the same
+    inputs, on its plain version, and hold each row to the plain version
+    under the rule (rtol 2e-2, atol 0.02 * max|out|) unless its top two
+    scores tie below f32 resolution (``TIE_RTOL``).  The model goes on with
+    the kernel's output.  Fails the run on any other mismatch."""
+
+    def __init__(self):
+        self.calls = self.rows = self.tie_rows = self.tie_rows_differing = 0
+        self.max_abs_err = 0.0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._ops = ops
+        self._saved = ops.flash_attention, ops.decode_attention
+        ops.flash_attention, ops.decode_attention = self.flash, self.decode
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention, self._ops.decode_attention = self._saved
+
+    def flash(self, q, k, v, *, causal=True):
+        from repro_torch.kernels import flash_attention as fa
+
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        sq, sk = q.shape[2], k.shape[2]
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        mask = qpos >= torch.arange(sk, device=q.device)[None, :]
+        self._check("flash", got, want, _scores(q, k, mask | (not causal)))
+        return got
+
+    def decode(self, q, k, v, kv_len):
+        from repro_torch.kernels import decode_attention as dec
+
+        got = dec.decode_attention(q, k, v, kv_len)
+        want = dec.decode_attention_plain(q, k, v, kv_len)
+        mask = torch.arange(k.shape[2], device=q.device) < kv_len
+        self._check("decode", got, want, _scores(q, k, mask))
+        return got
+
+    def _check(self, kind, got, want, scores) -> None:
+        top = scores.topk(2, dim=-1).values
+        tie = top[..., 0] - top[..., 1] <= TIE_RTOL * top[..., 0].abs().clamp_min(1.0)
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        bad = (err > 2e-2 * w.abs() + 0.02 * float(w.abs().max())).any(-1)
+        if bool((bad & ~tie).any()):
+            worst = float(err.amax(-1)[bad & ~tie].max())
+            fail(f"serve: {kind} kernel differs from its plain version in the "
+                 f"model on {int((bad & ~tie).sum())} untied rows (max {worst})")
+        self.calls += 1
+        self.rows += tie.numel()
+        self.tie_rows += int(tie.sum())
+        self.tie_rows_differing += int((bad & tie).sum())
+        if bool((~tie).any()):
+            self.max_abs_err = max(self.max_abs_err, float(err.amax(-1)[~tie].max()))
+
+    def summary(self) -> dict:
+        return {k: getattr(self, k) for k in (
+            "calls", "rows", "tie_rows", "tie_rows_differing", "max_abs_err")}
+
+
+def serve_phase() -> dict:
+    from repro_torch import serve_lm
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = registry.get("olmo-1b")
+    n_prompt, n_new = 1024, 32
+    # a first run warms cuBLAS and the kernels' libraries; its counts are reset
+    t = time.perf_counter()
+    cold = serve_lm.main(SERVE_ARGV)
+    cold_s = time.perf_counter() - t
+    del cold
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = serve_lm.main(SERVE_ARGV)
+    main_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    want_counts = {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": cfg.n_layers * (n_new - 1),
+    }
+    if counts != want_counts:
+        fail(f"serve: kernel launches {counts}, expected {want_counts}")
+    if res.tokens.shape != (4, n_new) or res.tokens.device.type != "cuda":
+        fail(f"serve: tokens {tuple(res.tokens.shape)} on {res.tokens.device}")
+    if int(res.tokens.max()) >= cfg.vocab_padded or int(res.tokens.min()) < 0:
+        fail("serve: a token outside the padded vocab")
+    all_logits = [res.prefill_logits, *res.decode_logits]
+    if not all(bool(torch.isfinite(x).all()) for x in all_logits):
+        fail("serve: non-finite logits")
+    if res.prefill_logits.shape != (4, 1, cfg.vocab_padded):
+        fail(f"serve: prefill logits {tuple(res.prefill_logits.shape)}")
+
+    # the same weights and prompts, drawn again from the seed
+    model = build_model(cfg, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (4, n_prompt), generator=gen, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    with ShadowAttention() as shadow:
+        logits, caches = model.prefill({"tokens": prompts}, s_max=n_prompt + n_new)
+        for t in range(4):
+            tok = res.tokens[:, t : t + 1]
+            logits, caches = model.decode(caches, tok, n_prompt + t)
+        seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
+        model.train_logits({"tokens": seq})
+    del caches, logits
+    # the device's share of a step: its work timed with the launches queued
+    # behind a sleep kernel, against the host clock of the served run
+    _, caches = model.prefill({"tokens": prompts}, s_max=n_prompt + n_new)
+    step = device_ms(lambda: model.decode(caches, res.tokens[:, :1], n_prompt), 5)
+    pre = device_ms(
+        lambda: model.prefill({"tokens": prompts}, s_max=n_prompt + n_new), 2
+    )
+    del caches
+    # reported, not held: at this width and depth the random model's one-hot
+    # attention breaks score ties either way (see the shadow's tie rows)
+    full_e2e = end_to_end(model, res, prompts, n_new)
+    del model
+    torch.cuda.empty_cache()
+
+    # the rule held end to end on the reduced config, on the card
+    scfg = registry.get("olmo-1b").reduced()
+    small = serve_lm.main(SMALL_ARGV)
+    smodel = build_model(scfg, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    sprompts = torch.randint(0, scfg.vocab, (4, 64), generator=gen, device="cuda")
+    small_e2e = end_to_end(smodel, small, sprompts, 8)
+    for label, diff in small_e2e.items():
+        if not diff["holds"]:
+            fail(f"serve (reduced olmo-1b): {label}: {diff}")
+    del smodel, small
+
+    n_dec = 4 * (n_new - 1)
+    row = {
+        "arch": cfg.name,
+        "layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "params": n_params,
+        "batch": 4,
+        "prompt_len": n_prompt,
+        "new_tokens": n_new,
+        "cold_main_s": cold_s,
+        "main_s": main_s,
+        "prefill_s": res.prefill_s,
+        "decode_s": res.decode_s,
+        "decode_tok_s": n_dec / res.decode_s,
+        "ms_per_decode_step": res.decode_s / (n_new - 1) * 1e3,
+        "peak_cuda_mb": peak_mb,
+        "decode_step_device_ms": step["ms"],
+        "decode_step_queued": step["queued"],
+        "decode_idle_share": 1 - step["ms"] / (res.decode_s / (n_new - 1) * 1e3),
+        "prefill_device_ms": pre["ms"],
+        "prefill_queued": pre["queued"],
+        "prefill_idle_share": 1 - pre["ms"] / (res.prefill_s * 1e3),
+        "launches": counts,
+        "shadow": shadow.summary(),
+        "full_end_to_end": full_e2e,
+        "reduced_end_to_end": small_e2e,
+        "sample": res.tokens[0].tolist(),
+    }
+    log(
+        f"serve {cfg.name} ({n_params} params, {cfg.n_layers} layers, "
+        f"d {cfg.d_model}) 4x{n_prompt} + {n_new} tokens: "
+        f"prefill_s={res.prefill_s:.4f} decode_s={res.decode_s:.4f} "
+        f"decode_tok_s={row['decode_tok_s']:.1f} "
+        f"ms_per_step={row['ms_per_decode_step']:.3f} peak_cuda_MB={peak_mb:.1f} "
+        f"cold_main_s={cold_s:.2f} launches={counts}"
+    )
+    log(
+        f"serve device time (queued): decode step {step['ms']:.3f} ms "
+        f"(queued={step['queued']}, idle share {row['decode_idle_share']:.3f}), "
+        f"prefill {pre['ms']:.3f} ms (queued={pre['queued']}, idle share "
+        f"{row['prefill_idle_share']:.3f})"
+    )
+    log(f"serve shadow (kernel vs plain on every call): {shadow.summary()}")
+    worst = max(full_e2e.items(), key=lambda kv: kv[1]["max_abs_err"])
+    n_hold = sum(d["holds"] for d in full_e2e.values())
+    log(
+        f"serve full-size logits rule (reported): {n_hold}/{len(full_e2e)} hold; "
+        f"worst {worst[0]}: {worst[1]}"
+    )
+    worst = max(small_e2e.items(), key=lambda kv: kv[1]["max_abs_err"])
+    log(
+        f"serve reduced olmo-1b logits rule: all {len(small_e2e)} hold; "
+        f"worst {worst[0]}: {worst[1]}"
+    )
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import segment_reduce as seg
 
     # 1. card
@@ -408,11 +882,18 @@ def main() -> None:
 
     # 2. build
     t = time.perf_counter()
-    build_log = _build.build("segment_reduce")
+    build_logs = _build.build_all(KERNEL_SOURCES)
     build_s = time.perf_counter() - t
-    log(f"build: {build_s:.2f} s")
-    for line in build_log.splitlines():
-        log(f"  nvcc[segment_reduce]: {line}")
+    names = ", ".join(KERNEL_SOURCES)
+    log(f"build: {build_s:.2f} s ({names}: one nvcc each, started together)")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "nvcc.log").write_text(
+        "".join(f"== {n}\n{text}" for n, text in build_logs.items())
+    )
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  nvcc[{name}]: {line.strip()}")
 
     # 3. kernel against its plain version
     cases = kernel_phase(seg, bw)
@@ -430,6 +911,12 @@ def main() -> None:
     # 6. solve
     solve = solve_phase()
 
+    # 7. attention kernels against their plain versions
+    flash_rows, decode_rows = attention_phase(kind)
+
+    # 8. serve olmo-1b; attention launches counted from here on
+    serve = serve_phase()
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -444,6 +931,26 @@ def main() -> None:
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
     }
+    entries = [entry]
+    attention = ((fa, flash_rows), (dec, decode_rows))
+    for mod, rows in attention:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        main_row = rows[0]  # olmo-1b's shape, the one the serving path runs
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": mod.SOURCE,
+                "replaces": REPLACES[name],
+                "launches": serve["launches"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main_row["ms"],
+                "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"],
+                "bound_by": main_row["bound_by"],
+                "library_ms": main_row["library_ms"],
+            }
+        )
     OUT_DIR.mkdir(exist_ok=True)
     details = {
         "card": kind,
@@ -455,10 +962,14 @@ def main() -> None:
         "kripke_frame_rows": frame_rows,
         "hlo": hlo_rows,
         "solve": solve,
-        "kernels": [entry],
+        "attention_flash": flash_rows,
+        "attention_decode": decode_rows,
+        "serve": serve,
+        "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
+        "kernels": entries,
     }
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2))
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

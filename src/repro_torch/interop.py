@@ -1,16 +1,22 @@
 """Carry the reference package's state into the port.
 
-There are no weights here: the state that crosses is a recorded trace and
-an app configuration.  Both arrive as plain Python / NumPy values, so the
-port never sees an object of the JAX package; the tests do the extraction
-on that side (``RegionEvent.to_dicts()``, ``dataclasses.asdict``).
+The state that crosses is a recorded trace, an app configuration, or a
+model's parameters.  All arrive as plain Python / NumPy values, so the port
+never sees an object of the JAX package; the tests do the extraction on that
+side (``RegionEvent.to_dicts()``, ``dataclasses.asdict``, ``np.asarray`` of
+each parameter).
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.apps.kripke import KripkeConfig
 from repro_torch.apps.stencil import Decomp3D
+from repro_torch.configs import base
 from repro_torch.core.regions import RegionEvent, RegionRecorder
+from repro_torch.models.lm import layer_plan
 
 
 def recorder_from_event_dicts(events, instances) -> RegionRecorder:
@@ -51,3 +57,61 @@ def kripke_config_from_dict(d: dict) -> KripkeConfig:
         decomp = Decomp3D(**decomp)
     d["w"] = tuple(d["w"])
     return KripkeConfig(decomp=decomp, **d)
+
+
+def model_config_from_dict(d: dict):
+    """A :class:`ModelConfig` from ``dataclasses.asdict`` of the reference's."""
+    d = dict(d)
+    subs = {
+        "mla": base.MLAConfig,
+        "moe": base.MoEConfig,
+        "ssm": base.SSMConfig,
+        "mlstm": base.MLSTMConfig,
+    }
+    for key, cls in subs.items():
+        if isinstance(d.get(key), dict):
+            d[key] = cls(**d[key])
+    if d.get("mrope_sections") is not None:
+        d["mrope_sections"] = tuple(d["mrope_sections"])
+    return base.ModelConfig(**d)
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr``; bf16 (dtype name ``bfloat16``) crosses as bits.
+
+    ``torch.from_numpy`` refuses the ``bfloat16`` dtype that JAX arrays
+    carry, so its 16-bit patterns are viewed as ``uint16`` and reinterpreted.
+    """
+    arr = np.array(arr, order="C")  # a writable copy that the tensor owns
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_numpy(cfg, tree: dict) -> dict:
+    """The port's ``LM`` state dict from the reference's parameter tree.
+
+    ``tree`` is the reference ``LM``'s parameters as nested dicts of NumPy
+    arrays (``{"embed": {...}, "groups": (stacked, ...)}``); each group's
+    leading ``layers`` axis is unstacked into one module per layer.  Load the
+    result with ``LM.load_state_dict``.
+    """
+    state = {}
+
+    def put(prefix: str, sub: dict, layer=None) -> None:
+        for k, v in sub.items():
+            name = f"{prefix}.{k}"
+            if isinstance(v, dict):
+                put(name, v, layer)
+            else:
+                state[name] = tensor_from_numpy(v if layer is None else v[layer])
+
+    put("embed", tree["embed"])
+    groups = tree["groups"]
+    plan = layer_plan(cfg)
+    if len(groups) != len(plan):
+        raise ValueError(f"{len(groups)} layer groups given, the plan has {len(plan)}")
+    for gi, ((_, n), stacked) in enumerate(zip(plan, groups)):
+        for i in range(n):
+            put(f"groups.{gi}.{i}", stacked, i)
+    return state

@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, which :func:`load` opens with
 ``ctypes``.  No PyTorch header is included, so a build takes seconds.
 
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 Libraries land in ``build/repro_torch/`` at the root of the checkout, named
 by a hash of the source, so an edited source rebuilds and an unchanged one
 is reused.  Nothing here runs at import: the CPU tests import every module
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -73,6 +75,25 @@ def build(name: str) -> str:
         )
     os.replace(tmp, out)
     return proc.stdout
+
+
+def build_all(names) -> dict:
+    """Compile the named sources at once, one ``nvcc`` each; name -> log.
+
+    Raises ``RuntimeError`` naming every source that failed.
+    """
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(build, n) for n in names}
+    logs, errors = {}, []
+    for name, fut in futures.items():
+        try:
+            logs[name] = fut.result()
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

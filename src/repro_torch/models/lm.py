@@ -1,0 +1,260 @@
+"""Decoder-only LM: the dense family's serving path and forward pass.
+
+The port of ``repro/models/lm.py`` for families ``dense`` (pre-norm GQA/MQA
+attention + gated FFN).  The reference stacks each layer group's
+parameters on a ``layers`` axis and drives it with ``lax.scan``; here a
+group is an ``nn.ModuleList`` of per-layer modules and the scan is a Python
+loop.  The KV caches are preallocated per layer and written in place by
+:meth:`LM.decode` (the reference returns updated copies).
+
+Every phase is wrapped in a communication region, as in the reference:
+``embed``, ``attn``, ``mlp``, ``lm_head``.  Without a device mesh the
+reference's ``shard_act`` is the identity, so the port leaves it out.
+
+Other families and kinds raise ``NotImplementedError`` naming the slice of
+the port that brings them: ``mamba`` (hybrid, with ``ssd_scan``), ``mlstm``
+(ssm, with ``mlstm_scan``), ``moe``, MLA and the VLM's M-RoPE.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.backend import BackendUnavailable
+from repro_torch.core.regions import comm_region
+from repro_torch.models import blocks as B
+from repro_torch.models.params import ParamTree, init_tree, stack_defs, unstack
+
+#: the slice of the port that brings each family this one cannot run
+_LATER = {
+    "moe": "the MoE slice (attn_moe layers)",
+    "hybrid": "the zamba2 slice (mamba layers and ssd_scan)",
+    "ssm": "the xlstm slice (mlstm layers and mlstm_scan)",
+    "vlm": "the VLM slice (M-RoPE and the vision prefix)",
+    "encdec": "the encoder-decoder slice",
+    "audio": "the encoder-decoder slice",
+}
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config this slice cannot run."""
+    later = _LATER.get(cfg.family, f"no slice yet (family {cfg.family!r})")
+    if cfg.mla is not None:
+        later = "the MLA slice (minicpm3's latent KV cache)"
+    elif cfg.family == "dense":
+        return
+    raise NotImplementedError(f"{cfg.name}: the port runs it from {later}")
+
+
+# ---------------------------------------------------------------------------
+# Layer definitions
+# ---------------------------------------------------------------------------
+
+
+def layer_defs(cfg, kind: str) -> dict:
+    if kind != "attn_ffn":
+        raise NotImplementedError(f"layer kind {kind!r} comes with a later slice")
+    d = {
+        "norm1": B.norm_def(cfg),
+        "attn": B.attn_defs(cfg),
+        "norm2": B.norm_def(cfg),
+        "ffn": B.ffn_defs(cfg),
+    }
+    return {k: v for k, v in d.items() if v is not None}
+
+
+def layer_plan(cfg) -> list:
+    """[(kind, n_layers)]."""
+    check_supported(cfg)
+    return [("attn_ffn", cfg.n_layers)]
+
+
+def model_defs(cfg) -> dict:
+    return {
+        "embed": B.embed_defs(cfg),
+        "groups": tuple(
+            stack_defs(layer_defs(cfg, kind), n) for kind, n in layer_plan(cfg)
+        ),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Rotary context
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Ctx:
+    cos: Optional[torch.Tensor] = None
+    sin: Optional[torch.Tensor] = None
+    pos: Optional[int] = None  # decode: the position written this step
+    s_max: int = 0  # cache length
+
+
+def make_rope(cfg, positions: torch.Tensor) -> tuple:
+    """positions (S,) or (B,S) -> cos/sin."""
+    return B.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer forward (train / prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def layer_train(cfg, kind: str, p, x, ctx: Ctx):
+    with comm_region("attn"):
+        h = B.norm(cfg, p.get("norm1"), x)
+        x = x + B.attn_train(cfg, p["attn"], h, ctx.cos, ctx.sin)
+    with comm_region("mlp"):
+        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+    return x
+
+
+def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
+    """Returns (x, cache) for one layer."""
+    with comm_region("attn"):
+        h = B.norm(cfg, p.get("norm1"), x)
+        h, cache = B.attn_prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
+        x = x + h
+    with comm_region("mlp"):
+        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+    return x, cache
+
+
+def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
+    with comm_region("attn"):
+        h = B.norm(cfg, p.get("norm1"), x)
+        h, cache = B.attn_decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
+        x = x + h
+    with comm_region("mlp"):
+        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+    return x, cache
+
+
+def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
+    return B.attn_cache_shape(cfg, batch, s_max)
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; the default is the CUDA card.
+
+    Raises :class:`~repro_torch.core.backend.BackendUnavailable` when CUDA is
+    asked for and absent: there is no fallback to the host.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise BackendUnavailable(
+            "the model runs on a CUDA device and none is available; "
+            "pass device='cpu' to run it on the host"
+        )
+    return device
+
+
+class LM(nn.Module):
+    """Decoder-only model over a ModelConfig, with its parameters.
+
+    Parameters are drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``; by default one seeded with ``seed``) by the reference's
+    init rule.  ``embed`` holds the embedding (and LM head); ``groups`` holds
+    one ``nn.ModuleList`` of layers per layer group.
+    """
+
+    def __init__(self, cfg, *, device=None, generator=None, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = layer_plan(cfg)
+        self.defs = model_defs(cfg)
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(seed)
+        self.embed = ParamTree(init_tree(self.defs["embed"], generator, device))
+        self.groups = nn.ModuleList()
+        for (kind, n), gdefs in zip(self.plan, self.defs["groups"]):
+            stacked = init_tree(gdefs, generator, device)
+            self.groups.append(
+                nn.ModuleList(ParamTree(unstack(stacked, i)) for i in range(n))
+            )
+            del stacked
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    # -- embedding ---------------------------------------------------------
+    def _embed(self, batch: dict) -> torch.Tensor:
+        with comm_region("embed"):
+            return B.embed_tokens(self.cfg, self.embed, batch["tokens"])
+
+    def _positions(self, seq: int) -> torch.Tensor:
+        return torch.arange(seq, dtype=torch.int32, device=self.device)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        with comm_region("lm_head"):
+            return B.lm_logits(self.cfg, self.embed, x)
+
+    # -- forward -----------------------------------------------------------
+    @torch.no_grad()
+    def train_logits(self, batch: dict) -> tuple:
+        """Logits over every position (forward only) and the aux loss."""
+        cfg = self.cfg
+        x = self._embed(batch)
+        cos, sin = make_rope(cfg, self._positions(x.shape[1]))
+        ctx = Ctx(cos=cos, sin=sin)
+        for (kind, _), layers in zip(self.plan, self.groups):
+            for lp in layers:
+                x = layer_train(cfg, kind, lp, x, ctx)
+        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- serving -----------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, batch: dict, s_max: int) -> tuple:
+        """Logits of the last prompt position and the caches (padded to s_max)."""
+        cfg = self.cfg
+        x = self._embed(batch)
+        cos, sin = make_rope(cfg, self._positions(x.shape[1]))
+        ctx = Ctx(cos=cos, sin=sin, s_max=s_max)
+        caches = []
+        for (kind, _), layers in zip(self.plan, self.groups):
+            group = []
+            for lp in layers:
+                x, cache = layer_prefill(cfg, kind, lp, x, ctx)
+                group.append(cache)
+            caches.append(group)
+        return self._head(x[:, -1:]), tuple(caches)
+
+    @torch.no_grad()
+    def decode(self, caches: tuple, token: torch.Tensor, pos: int) -> tuple:
+        """token (B,1) int; pos (host int) is the next position to write.
+
+        The caches are updated in place and returned.
+        """
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed({"tokens": token})
+        # arange, not torch.tensor: a host->device copy would stall the step
+        poss = torch.arange(pos, pos + 1, dtype=torch.int32, device=x.device)
+        cos, sin = make_rope(cfg, poss)
+        ctx = Ctx(cos=cos, sin=sin, pos=pos)
+        for (kind, _), layers, group in zip(self.plan, self.groups, caches):
+            for i, lp in enumerate(layers):
+                x, group[i] = layer_decode(cfg, kind, lp, x, ctx, group[i])
+        return self._head(x), caches
+
+    # -- cache templates ---------------------------------------------------
+    def cache_shapes(self, batch: int, s_max: int) -> tuple:
+        out = []
+        for kind, n in self.plan:
+            per = layer_cache_shape(self.cfg, kind, batch, s_max)
+            out.append(
+                {k: ((n,) + sh, ("layers",) + axes) for k, (sh, axes) in per.items()}
+            )
+        return tuple(out)

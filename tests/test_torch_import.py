@@ -1,8 +1,8 @@
-"""The PyTorch port stands alone: no JAX and nothing of ``repro``.
+"""The PyTorch port stands alone: no JAX, nothing of ``repro``, no ``ml_dtypes``.
 
-Every module of ``repro_torch`` must import in a process where ``jax`` and
-``repro`` cannot be imported, and no source file of the port (nor
-``chip_smoke.py``) may name either in an import statement.
+Every module of ``repro_torch`` must import in a process where ``jax``,
+``repro`` and ``ml_dtypes`` cannot be imported, and no source file of the
+port (nor ``chip_smoke.py``) may name any of them in an import statement.
 """
 
 import ast
@@ -19,6 +19,7 @@ _IMPORT_ALL = """
 import importlib, os, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 root = os.path.join(sys.argv[1], "repro_torch")
 names = []
 for dirpath, _dirs, files in os.walk(root):
@@ -28,7 +29,8 @@ for dirpath, _dirs, files in os.walk(root):
             names.append(pkg if f == "__init__.py" else f"{pkg}.{f[:-3]}")
 for name in sorted(names):
     importlib.import_module(name)
-assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+assert not loaded & {"jax", "repro", "ml_dtypes"}, loaded
 print("OK", len(names))
 """
 
@@ -51,14 +53,14 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 15, proc.stdout
+    assert n >= 30, proc.stdout
 
 
 def test_no_source_imports_jax_or_repro():
-    banned = {"jax", "jaxlib", "repro"}
+    banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 16
+    assert len(sources) >= 31
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)

@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
+The attention kernels are also held, inside the reduced models, against the
+same models routed through the plain versions (``ops.plain()``).
+
 These tests need a CUDA device and ``nvcc``; elsewhere they skip with the
 reason.  The module imports nothing of the JAX package, so it also runs on
 a machine without JAX:
@@ -11,8 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core.backend import TorchBackend
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as seg
+from repro_torch.models.model import build_model
+from repro_torch.serve_lm import serve
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +79,132 @@ def test_backend_segment_reduce_on_card_matches_host(card):
         want = ufunc.reduceat(col[order], starts)
         got = TorchBackend().segment_reduce(col, order, starts, ufunc)
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels
+# ---------------------------------------------------------------------------
+
+def _attn_tol(dtype):
+    # bf16 inputs: the kernel's f32 sums run in another order than the
+    # plain version's, and the output rounds to bf16 (tests/test_kernels.py)
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(
+        rtol=2e-5, atol=2e-5
+    )
+
+
+def _randn(rng, shape, dtype, card):
+    x = rng.standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).to(card, dtype)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Sk,D",
+    [
+        (2, 4, 2, 128, 128, 64),
+        (1, 8, 1, 96, 96, 64),  # MQA, ragged tiles
+        (2, 4, 4, 64, 256, 128),  # queries at the end of the keys
+        (1, 2, 2, 33, 33, 32),
+        (1, 8, 1, 200, 200, 256),  # gemma's head dim
+        (1, 7, 1, 130, 130, 128),  # deepseek's 7-head groups
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_version(card, B, Hq, Hkv, Sq, Sk, D, dtype, causal):
+    rng = np.random.default_rng(Sq + D)
+    q = _randn(rng, (B, Hq, Sq, D), dtype, card)
+    k = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    v = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_count() == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_flash_kernel_takes_einsum_layouts(card):
+    """q/k/v straight from the ``bsd,dhk->bhsk`` projection (not contiguous)."""
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (2, 40, 64), torch.bfloat16, card)
+    w = _randn(rng, (64, 3, 4, 32), torch.bfloat16, card) * 0.2
+    q, k, v = (torch.einsum("bsd,dhk->bhsk", x, w[:, i]) for i in range(3))
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,D,kv_len",
+    [
+        (2, 4, 2, 256, 64, 256),
+        (1, 8, 1, 512, 128, 101),  # partly filled cache, MQA
+        (2, 2, 2, 96, 64, 51),
+        (3, 16, 16, 300, 128, 257),
+        (1, 56, 8, 700, 128, 650),  # 7-head groups
+        (2, 8, 1, 70, 256, 1),
+        (1, 4, 1, 64, 32, 64),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(card, B, Hq, Hkv, S, D, kv_len, dtype):
+    rng = np.random.default_rng(S + kv_len)
+    q = _randn(rng, (B, Hq, 1, D), dtype, card)
+    k = _randn(rng, (B, Hkv, S, D), dtype, card)
+    v = _randn(rng, (B, Hkv, S, D), dtype, card)
+    before = dec.launch_count()
+    got = dec.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert dec.launch_count() == before + 1
+    want = dec.decode_attention_plain(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_attention_kernels_raise_on_unsupported_head_dim(card):
+    q = torch.zeros((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        dec.decode_attention(q[:, :, :1], q, q, 4)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half()[..., :32], q.half()[..., :32], q.half()[..., :32])
+
+
+def test_ops_plain_routes_the_card_to_plain_versions(card):
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (1, 2, 16, 64), torch.bfloat16, card)
+    ops.reset_launch_counts()
+    with ops.plain():
+        ops.flash_attention(q, q, q)
+        ops.decode_attention(q[:, :, :1], q, q, 16)
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    ops.flash_attention(q, q, q)
+    ops.decode_attention(q[:, :, :1], q, q, 16)
+    assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma-2b", "deepseek-coder-33b"])
+def test_reduced_model_on_card_matches_plain_versions(card, arch):
+    cfg = registry.get(arch).reduced()
+    model = build_model(cfg, device=card, seed=0)
+    gen = torch.Generator(device=card).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=card)
+    ops.reset_launch_counts()
+    res = serve(model, prompts, 6)
+    assert ops.launch_counts() == {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": 5 * cfg.n_layers,
+    }
+    with ops.plain():
+        logits, caches = model.prefill({"tokens": prompts}, s_max=46)
+        scale = float(logits.abs().max())
+        torch.testing.assert_close(
+            res.prefill_logits, logits, rtol=2e-2, atol=0.02 * scale
+        )
+        for t in range(5):
+            logits, caches = model.decode(caches, res.tokens[:, t : t + 1], 40 + t)
+            torch.testing.assert_close(
+                res.decode_logits[t], logits, rtol=2e-2, atol=0.02 * scale
+            )
