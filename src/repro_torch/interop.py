@@ -92,9 +92,10 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
     """The port's ``LM`` state dict from the reference's parameter tree.
 
     ``tree`` is the reference ``LM``'s parameters as nested dicts of NumPy
-    arrays (``{"embed": {...}, "groups": (stacked, ...)}``); each group's
-    leading ``layers`` axis is unstacked into one module per layer.  Load the
-    result with ``LM.load_state_dict``.
+    arrays (``{"embed": {...}, "groups": (stacked, ...)}``, and a hybrid
+    model's ``"shared"`` block); each group's leading ``layers`` axis is
+    unstacked into one module per layer, and the shared block's ``down``
+    stays stacked by invocation.  Load the result with ``LM.load_state_dict``.
     """
     state = {}
 
@@ -107,6 +108,8 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict:
                 state[name] = tensor_from_numpy(v if layer is None else v[layer])
 
     put("embed", tree["embed"])
+    if "shared" in tree:
+        put("shared", tree["shared"])
     groups = tree["groups"]
     plan = layer_plan(cfg)
     if len(groups) != len(plan):

@@ -1,4 +1,4 @@
-"""Public wrappers for the attention kernels, as the models call them.
+"""Public wrappers for the model kernels, as the models call them.
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written kernel, or the call raises.  Inside :func:`plain`, CUDA
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ssd_scan as _ssd
 
 _plain_depth = 0
 
@@ -45,14 +46,21 @@ def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
     return _decode.decode_attention(q, k, v, kv_len)
 
 
+def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
+    """xh (B,S,H,P), la (B,S,H), Bm/Cm (B,S,N) -> (y, h_final (B,H,P,N) f32)."""
+    if _plain_depth:
+        return _ssd.ssd_scan_plain(xh, la, Bm, Cm, h0, block_q=block_q)
+    return _ssd.ssd_scan(xh, la, Bm, Cm, h0, block_q=block_q)
+
+
+_KERNELS = {"flash_attention": _flash, "decode_attention": _decode, "ssd_scan": _ssd}
+
+
 def launch_counts() -> dict:
-    """Kernel launches of each attention kernel since the last reset."""
-    return {
-        "flash_attention": _flash.launch_count(),
-        "decode_attention": _decode.launch_count(),
-    }
+    """Kernel launches of each model kernel since the last reset."""
+    return {name: mod.launch_count() for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _flash.reset_launch_count()
-    _decode.reset_launch_count()
+    for mod in _KERNELS.values():
+        mod.reset_launch_count()

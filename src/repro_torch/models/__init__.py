@@ -1,1 +1,1 @@
-"""The LM model stack: the dense family's serving path and forward pass."""
+"""The LM model stack: the dense and hybrid families' serving path and forward."""

@@ -1,24 +1,29 @@
-"""Decoder-only LM: the dense family's serving path and forward pass.
+"""Decoder-only LM: the dense and hybrid families' serving path and forward.
 
 The port of ``repro/models/lm.py`` for families ``dense`` (pre-norm GQA/MQA
-attention + gated FFN).  The reference stacks each layer group's
-parameters on a ``layers`` axis and drives it with ``lax.scan``; here a
-group is an ``nn.ModuleList`` of per-layer modules and the scan is a Python
-loop.  The KV caches are preallocated per layer and written in place by
-:meth:`LM.decode` (the reference returns updated copies).
+attention + gated FFN) and ``hybrid`` (zamba2: a Mamba-2 backbone with one
+shared attention + FFN block after every ``shared_attn_every`` layers but
+the last group, run at width ``2 d`` on the concatenation with the initial
+embedding, each invocation with its own down-projection).  The reference
+stacks each layer group's parameters on a ``layers`` axis and drives it with
+``lax.scan``; here a group is an ``nn.ModuleList`` of per-layer modules and
+the scan is a Python loop.  The KV caches and the Mamba states are
+preallocated per layer and updated in place by :meth:`LM.decode` (the
+reference returns updated copies).
 
 Every phase is wrapped in a communication region, as in the reference:
-``embed``, ``attn``, ``mlp``, ``lm_head``.  Without a device mesh the
-reference's ``shard_act`` is the identity, so the port leaves it out.
+``embed``, ``attn``, ``mlp``, ``ssm``, ``shared_attn``, ``lm_head``.
+Without a device mesh the reference's ``shard_act`` is the identity, so the
+port leaves it out.
 
 Other families and kinds raise ``NotImplementedError`` naming the slice of
-the port that brings them: ``mamba`` (hybrid, with ``ssd_scan``), ``mlstm``
-(ssm, with ``mlstm_scan``), ``moe``, MLA and the VLM's M-RoPE.
+the port that brings them: ``mlstm`` (ssm, with ``mlstm_scan``), ``moe``,
+MLA and the VLM's M-RoPE.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -27,12 +32,18 @@ from torch import nn
 from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.regions import comm_region
 from repro_torch.models import blocks as B
-from repro_torch.models.params import ParamTree, init_tree, stack_defs, unstack
+from repro_torch.models import mamba as M
+from repro_torch.models.params import (
+    ParamDef,
+    ParamTree,
+    init_tree,
+    stack_defs,
+    unstack,
+)
 
 #: the slice of the port that brings each family this one cannot run
 _LATER = {
     "moe": "the MoE slice (attn_moe layers)",
-    "hybrid": "the zamba2 slice (mamba layers and ssd_scan)",
     "ssm": "the xlstm slice (mlstm layers and mlstm_scan)",
     "vlm": "the VLM slice (M-RoPE and the vision prefix)",
     "encdec": "the encoder-decoder slice",
@@ -45,7 +56,7 @@ def check_supported(cfg) -> None:
     later = _LATER.get(cfg.family, f"no slice yet (family {cfg.family!r})")
     if cfg.mla is not None:
         later = "the MLA slice (minicpm3's latent KV cache)"
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "hybrid"):
         return
     raise NotImplementedError(f"{cfg.name}: the port runs it from {later}")
 
@@ -56,30 +67,65 @@ def check_supported(cfg) -> None:
 
 
 def layer_defs(cfg, kind: str) -> dict:
-    if kind != "attn_ffn":
+    if kind == "attn_ffn":
+        d = {
+            "norm1": B.norm_def(cfg),
+            "attn": B.attn_defs(cfg),
+            "norm2": B.norm_def(cfg),
+            "ffn": B.ffn_defs(cfg),
+        }
+    elif kind == "mamba":
+        d = {"norm1": B.norm_def(cfg), "ssm": M.mamba_defs(cfg)}
+    else:
         raise NotImplementedError(f"layer kind {kind!r} comes with a later slice")
-    d = {
-        "norm1": B.norm_def(cfg),
-        "attn": B.attn_defs(cfg),
-        "norm2": B.norm_def(cfg),
-        "ffn": B.ffn_defs(cfg),
-    }
     return {k: v for k, v in d.items() if v is not None}
 
 
 def layer_plan(cfg) -> list:
-    """[(kind, n_layers)]."""
+    """[(kind, n_layers)]; hybrid: mamba groups of ``shared_attn_every``."""
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        n, k = cfg.n_layers, cfg.shared_attn_every
+        return [("mamba", min(k, n - i)) for i in range(0, n, k)]
     return [("attn_ffn", cfg.n_layers)]
 
 
-def model_defs(cfg) -> dict:
+def _shared_block_cfg(cfg):
+    """zamba2's shared attention block operates at width 2*d."""
+    return replace(
+        cfg,
+        d_model=2 * cfg.d_model,
+        head_dim=2 * cfg.d_model // cfg.n_heads,
+        mla=None,
+        moe=None,
+    )
+
+
+def shared_defs(cfg) -> dict:
+    scfg = _shared_block_cfg(cfg)
+    n_inv = max(1, len(layer_plan(cfg)) - 1) if cfg.family == "hybrid" else 0
     return {
+        "norm1": B.norm_def(scfg),
+        "attn": B.attn_defs(scfg),
+        "norm2": B.norm_def(scfg),
+        "ffn": B.ffn_defs(scfg, cfg.d_ff),
+        # per-invocation (unshared) down projections 2d -> d
+        "down": ParamDef(
+            (n_inv, 2 * cfg.d_model, cfg.d_model), ("layers", "mlp", "embed")
+        ),
+    }
+
+
+def model_defs(cfg) -> dict:
+    defs = {
         "embed": B.embed_defs(cfg),
         "groups": tuple(
             stack_defs(layer_defs(cfg, kind), n) for kind, n in layer_plan(cfg)
         ),
     }
+    if cfg.family == "hybrid":
+        defs["shared"] = shared_defs(cfg)
+    return defs
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +143,12 @@ class Ctx:
 
 def make_rope(cfg, positions: torch.Tensor) -> tuple:
     """positions (S,) or (B,S) -> cos/sin."""
-    return B.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.family == "hybrid":
+        # the only attention is the shared block at width 2*d
+        hd = 2 * cfg.d_model // cfg.n_heads
+    else:
+        hd = cfg.head_dim
+    return B.rope_angles(positions, hd, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +157,9 @@ def make_rope(cfg, positions: torch.Tensor) -> tuple:
 
 
 def layer_train(cfg, kind: str, p, x, ctx: Ctx):
+    if kind == "mamba":
+        with comm_region("ssm"):
+            return x + M.mamba_train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         x = x + B.attn_train(cfg, p["attn"], h, ctx.cos, ctx.sin)
@@ -116,6 +170,12 @@ def layer_train(cfg, kind: str, p, x, ctx: Ctx):
 
 def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
     """Returns (x, cache) for one layer."""
+    if kind == "mamba":
+        with comm_region("ssm"):
+            h, cache = M.mamba_train(
+                cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
+            )
+            return x + h, cache
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         h, cache = B.attn_prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
@@ -126,6 +186,12 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
 
 
 def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
+    if kind == "mamba":
+        with comm_region("ssm"):
+            h, cache = M.mamba_decode(
+                cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), cache
+            )
+            return x + h, cache
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         h, cache = B.attn_decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
@@ -136,7 +202,50 @@ def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
 
 
 def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
+    if kind == "mamba":
+        return M.mamba_state_shape(cfg, batch)
     return B.attn_cache_shape(cfg, batch, s_max)
+
+
+# ---------------------------------------------------------------------------
+# Shared attention block (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def _shared_out(scfg, sp, u, x, inv: int) -> torch.Tensor:
+    u = u + B.ffn(scfg, sp["ffn"], B.norm(scfg, sp.get("norm2"), u))
+    return x + torch.einsum("bsk,kd->bsd", u, sp["down"][inv])
+
+
+def shared_train(cfg, sp, x, x0, inv: int, ctx: Ctx) -> torch.Tensor:
+    scfg = _shared_block_cfg(cfg)
+    with comm_region("shared_attn"):
+        u = torch.cat([x, x0], dim=-1)
+        h = B.norm(scfg, sp.get("norm1"), u)
+        u = u + B.attn_train(scfg, sp["attn"], h, ctx.cos, ctx.sin)
+        return _shared_out(scfg, sp, u, x, inv)
+
+
+def shared_prefill(cfg, sp, x, x0, inv: int, ctx: Ctx) -> tuple:
+    scfg = _shared_block_cfg(cfg)
+    with comm_region("shared_attn"):
+        u = torch.cat([x, x0], dim=-1)
+        h = B.norm(scfg, sp.get("norm1"), u)
+        h, cache = B.attn_prefill(scfg, sp["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
+        return _shared_out(scfg, sp, u + h, x, inv), cache
+
+
+def shared_decode(cfg, sp, x, x0, inv: int, ctx: Ctx, cache: dict) -> tuple:
+    scfg = _shared_block_cfg(cfg)
+    with comm_region("shared_attn"):
+        u = torch.cat([x, x0], dim=-1)
+        h = B.norm(scfg, sp.get("norm1"), u)
+        h, cache = B.attn_decode(scfg, sp["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
+        return _shared_out(scfg, sp, u + h, x, inv), cache
+
+
+def shared_cache_shape(cfg, batch: int, s_max: int) -> dict:
+    return B.attn_cache_shape(_shared_block_cfg(cfg), batch, s_max)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +274,12 @@ class LM(nn.Module):
     Parameters are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; by default one seeded with ``seed``) by the reference's
     init rule.  ``embed`` holds the embedding (and LM head); ``groups`` holds
-    one ``nn.ModuleList`` of layers per layer group.
+    one ``nn.ModuleList`` of layers per layer group; a hybrid model's
+    ``shared`` holds the shared block, its ``down`` stacked by invocation.
+
+    The caches (:meth:`prefill`, :meth:`decode`) are a tuple with one list of
+    per-layer caches for each group; a hybrid model's tuple also holds the
+    shared block's KV cache (a dict) after each group but the last.
     """
 
     def __init__(self, cfg, *, device=None, generator=None, seed: int = 0):
@@ -184,10 +298,16 @@ class LM(nn.Module):
                 nn.ModuleList(ParamTree(unstack(stacked, i)) for i in range(n))
             )
             del stacked
+        if "shared" in self.defs:
+            self.shared = ParamTree(init_tree(self.defs["shared"], generator, device))
 
     @property
     def device(self) -> torch.device:
         return self.embed["tok"].device
+
+    def _shared_after(self, gi: int) -> bool:
+        """Whether the shared block runs after group ``gi``."""
+        return self.cfg.family == "hybrid" and gi < len(self.plan) - 1
 
     # -- embedding ---------------------------------------------------------
     def _embed(self, batch: dict) -> torch.Tensor:
@@ -209,9 +329,12 @@ class LM(nn.Module):
         x = self._embed(batch)
         cos, sin = make_rope(cfg, self._positions(x.shape[1]))
         ctx = Ctx(cos=cos, sin=sin)
-        for (kind, _), layers in zip(self.plan, self.groups):
+        x0 = x
+        for gi, ((kind, _), layers) in enumerate(zip(self.plan, self.groups)):
             for lp in layers:
                 x = layer_train(cfg, kind, lp, x, ctx)
+            if self._shared_after(gi):
+                x = shared_train(cfg, self.shared, x, x0, gi, ctx)
         return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     # -- serving -----------------------------------------------------------
@@ -223,12 +346,16 @@ class LM(nn.Module):
         cos, sin = make_rope(cfg, self._positions(x.shape[1]))
         ctx = Ctx(cos=cos, sin=sin, s_max=s_max)
         caches = []
-        for (kind, _), layers in zip(self.plan, self.groups):
+        x0 = x
+        for gi, ((kind, _), layers) in enumerate(zip(self.plan, self.groups)):
             group = []
             for lp in layers:
                 x, cache = layer_prefill(cfg, kind, lp, x, ctx)
                 group.append(cache)
             caches.append(group)
+            if self._shared_after(gi):
+                x, cache = shared_prefill(cfg, self.shared, x, x0, gi, ctx)
+                caches.append(cache)
         return self._head(x[:, -1:]), tuple(caches)
 
     @torch.no_grad()
@@ -244,17 +371,26 @@ class LM(nn.Module):
         poss = torch.arange(pos, pos + 1, dtype=torch.int32, device=x.device)
         cos, sin = make_rope(cfg, poss)
         ctx = Ctx(cos=cos, sin=sin, pos=pos)
-        for (kind, _), layers, group in zip(self.plan, self.groups, caches):
+        x0 = x
+        ci = 0
+        for gi, ((kind, _), layers) in enumerate(zip(self.plan, self.groups)):
+            group = caches[ci]
             for i, lp in enumerate(layers):
                 x, group[i] = layer_decode(cfg, kind, lp, x, ctx, group[i])
+            ci += 1
+            if self._shared_after(gi):
+                x, _ = shared_decode(cfg, self.shared, x, x0, gi, ctx, caches[ci])
+                ci += 1
         return self._head(x), caches
 
     # -- cache templates ---------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int) -> tuple:
         out = []
-        for kind, n in self.plan:
+        for gi, (kind, n) in enumerate(self.plan):
             per = layer_cache_shape(self.cfg, kind, batch, s_max)
             out.append(
                 {k: ((n,) + sh, ("layers",) + axes) for k, (sh, axes) in per.items()}
             )
+            if self._shared_after(gi):
+                out.append(shared_cache_shape(self.cfg, batch, s_max))
         return tuple(out)

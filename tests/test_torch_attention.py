@@ -104,7 +104,11 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     assert torch.equal(out, fa.flash_attention_plain(q, k, k))
     out = ops.decode_attention(q[:, :, :1], k, k, 5)
     assert torch.equal(out, dec.decode_attention_plain(q[:, :, :1], k, k, 5))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {
+        "flash_attention": 0,
+        "decode_attention": 0,
+        "ssd_scan": 0,
+    }
 
 
 def test_plain_versions_take_non_contiguous_layouts():

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-The attention kernels are also held, inside the reduced models, against the
-same models routed through the plain versions (``ops.plain()``).
+The attention and SSD kernels are also held, inside the reduced models,
+against the same models routed through the plain versions
+(``ops.plain()``).
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip with the
 reason.  The module imports nothing of the JAX package, so it also runs on
@@ -20,6 +21,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as seg
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.model import build_model
 from repro_torch.serve_lm import serve
 
@@ -175,28 +177,58 @@ def test_attention_kernels_raise_on_unsupported_head_dim(card):
 def test_ops_plain_routes_the_card_to_plain_versions(card):
     rng = np.random.default_rng(5)
     q = _randn(rng, (1, 2, 16, 64), torch.bfloat16, card)
+    xh, la, bm, cm = _ssd_inputs(rng, 1, 40, 2, 32, 16, torch.bfloat16, card)
     ops.reset_launch_counts()
     with ops.plain():
         ops.flash_attention(q, q, q)
         ops.decode_attention(q[:, :, :1], q, q, 16)
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+        ops.ssd_scan(xh, la, bm, cm)
+    assert ops.launch_counts() == {
+        "flash_attention": 0,
+        "decode_attention": 0,
+        "ssd_scan": 0,
+    }
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, :1], q, q, 16)
-    assert ops.launch_counts() == {"flash_attention": 1, "decode_attention": 1}
+    ops.ssd_scan(xh, la, bm, cm)
+    assert ops.launch_counts() == {
+        "flash_attention": 1,
+        "decode_attention": 1,
+        "ssd_scan": 1,
+    }
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma-2b", "deepseek-coder-33b"])
+def _launches_per_serve(cfg, n_new: int) -> dict:
+    """Kernel launches of one prefill and ``n_new - 1`` decode steps."""
+    if cfg.family == "hybrid":
+        n_shared = -(-cfg.n_layers // cfg.shared_attn_every) - 1
+        return {
+            "flash_attention": n_shared,
+            "decode_attention": (n_new - 1) * n_shared,
+            "ssd_scan": cfg.n_layers,
+        }
+    return {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": (n_new - 1) * cfg.n_layers,
+        "ssd_scan": 0,
+    }
+
+
+@pytest.mark.parametrize(
+    "arch", ["olmo-1b", "gemma-2b", "deepseek-coder-33b", "zamba2-1.2b"]
+)
 def test_reduced_model_on_card_matches_plain_versions(card, arch):
     cfg = registry.get(arch).reduced()
     model = build_model(cfg, device=card, seed=0)
+    if cfg.family == "hybrid":
+        # the shared block's attention is one-hot under the reference init,
+        # and in bf16 a one-step rounding difference upstream flips it
+        model = model.float()
     gen = torch.Generator(device=card).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=card)
     ops.reset_launch_counts()
     res = serve(model, prompts, 6)
-    assert ops.launch_counts() == {
-        "flash_attention": cfg.n_layers,
-        "decode_attention": 5 * cfg.n_layers,
-    }
+    assert ops.launch_counts() == _launches_per_serve(cfg, 6)
     with ops.plain():
         logits, caches = model.prefill({"tokens": prompts}, s_max=46)
         scale = float(logits.abs().max())
@@ -208,3 +240,99 @@ def test_reduced_model_on_card_matches_plain_versions(card, arch):
             torch.testing.assert_close(
                 res.decode_logits[t], logits, rtol=2e-2, atol=0.02 * scale
             )
+
+
+def test_reduced_zamba2_launch_counts():
+    """5 Mamba-2 layers in groups 2+2+1, the shared block after two of them."""
+    cfg = registry.get("zamba2-1.2b").reduced()
+    assert _launches_per_serve(cfg, 6) == {
+        "flash_attention": 2,
+        "decode_attention": 10,
+        "ssd_scan": 5,
+    }
+
+
+# ---------------------------------------------------------------------------
+# SSD scan kernel
+# ---------------------------------------------------------------------------
+
+#: bf16 inputs: y rounds to bf16 and the sums run in another order
+#: (tests/test_kernels.py's bf16 tolerance); f32: its 1e-4
+SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, card):
+    """The scales of tests/test_kernels.py; la (log decays) f32 and <= 0."""
+    xh = _randn(rng, (B, S, H, P), dtype, card) * 0.5
+    la = -_randn(rng, (B, S, H), torch.float32, card).abs() * 0.3
+    bm = _randn(rng, (B, S, N), dtype, card) * 0.5
+    cm = _randn(rng, (B, S, N), dtype, card) * 0.5
+    return xh, la, bm, cm
+
+
+def _ssd_close(got, want, dtype):
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,N,Q",
+    [
+        (2, 256, 8, 64, 64, 128),  # zamba2's head and state, fewer heads
+        (1, 200, 4, 64, 64, 128),  # a ragged last chunk
+        (1, 1, 4, 64, 64, 128),  # one position
+        (2, 64, 8, 32, 16, 16),  # the reduced zamba2
+        (1, 1000, 2, 64, 32, 128),
+        (1, 33, 2, 32, 64, 8),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version(card, B, S, H, P, N, Q, dtype):
+    rng = np.random.default_rng(S + P + N)
+    xh, la, bm, cm = _ssd_inputs(rng, B, S, H, P, N, dtype, card)
+    before = ssd.launch_count()
+    got = ssd.ssd_scan(xh, la, bm, cm, block_q=Q)
+    torch.cuda.synchronize()
+    assert ssd.launch_count() == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _ssd_close(got, ssd.ssd_scan_plain(xh, la, bm, cm, block_q=Q), dtype)
+
+
+def test_ssd_kernel_takes_strided_b_c_and_an_initial_state(card):
+    """Bm / Cm as slices of the conv output, as the model passes them."""
+    rng = np.random.default_rng(12)
+    B, S, H, P, N = 2, 300, 4, 64, 64
+    xh, la, _, _ = _ssd_inputs(rng, B, S, H, P, N, torch.bfloat16, card)
+    xbc = _randn(rng, (B, S, H * P + 2 * N), torch.bfloat16, card) * 0.5
+    bm, cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    h0 = _randn(rng, (B, H, P, N), torch.float32, card)
+    got = ssd.ssd_scan(xh, la, bm, cm, h0)
+    want = ssd.ssd_scan_plain(xh, la, bm.contiguous(), cm.contiguous(), h0)
+    _ssd_close(got, want, torch.bfloat16)
+
+
+def test_ssd_kernel_steep_decays_stay_finite(card):
+    """Above the diagonal cum_q - cum_j reaches ~1e4: masked, no NaN.
+
+    The prefix sums reach ~1e4 here, so their f32 rounding, which depends
+    on the order of the sums, moves exp(cum_q - cum_j) by up to ~1e-3
+    relative: the values are held at 1e-2, not at the f32 tolerance.
+    """
+    rng = np.random.default_rng(13)
+    xh, la, bm, cm = _ssd_inputs(rng, 1, 256, 2, 64, 64, torch.float32, card)
+    y, hf = ssd.ssd_scan(xh, la * 400.0, bm, cm)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+    y_p, hf_p = ssd.ssd_scan_plain(xh, la * 400.0, bm, cm)
+    torch.testing.assert_close(y, y_p, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(hf, hf_p, rtol=1e-2, atol=1e-2)
+
+
+def test_ssd_kernel_raises_on_unsupported_sizes(card):
+    rng = np.random.default_rng(14)
+    xh, la, bm, cm = _ssd_inputs(rng, 1, 16, 2, 48, 16, torch.float32, card)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(xh, la, bm, cm)  # P = 48
+    xh, la, bm, cm = _ssd_inputs(rng, 1, 256, 2, 64, 64, torch.float32, card)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(xh, la, bm, cm, block_q=256)
