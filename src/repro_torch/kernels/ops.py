@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ssd_scan as _ssd
 
 _plain_depth = 0
@@ -53,7 +54,19 @@ def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
     return _ssd.ssd_scan(xh, la, Bm, Cm, h0, block_q=block_q)
 
 
-_KERNELS = {"flash_attention": _flash, "decode_attention": _decode, "ssd_scan": _ssd}
+def mlstm_scan(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tuple:
+    """q/k/v (B,S,H,D), lf/li (B,S,H) -> (h (B,S,H,D) f32, (C, n, m) f32)."""
+    if _plain_depth:
+        return _mlstm.mlstm_scan_plain(q, k, v, lf, li, state, block_q=block_q)
+    return _mlstm.mlstm_scan(q, k, v, lf, li, state, block_q=block_q)
+
+
+_KERNELS = {
+    "flash_attention": _flash,
+    "decode_attention": _decode,
+    "ssd_scan": _ssd,
+    "mlstm_scan": _mlstm,
+}
 
 
 def launch_counts() -> dict:

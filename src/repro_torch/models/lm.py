@@ -1,15 +1,17 @@
-"""Decoder-only LM: the dense and hybrid families' serving path and forward.
+"""Decoder-only LM: the dense, hybrid and ssm families' serving path and forward.
 
 The port of ``repro/models/lm.py`` for families ``dense`` (pre-norm GQA/MQA
-attention + gated FFN) and ``hybrid`` (zamba2: a Mamba-2 backbone with one
+attention + gated FFN), ``hybrid`` (zamba2: a Mamba-2 backbone with one
 shared attention + FFN block after every ``shared_attn_every`` layers but
 the last group, run at width ``2 d`` on the concatenation with the initial
-embedding, each invocation with its own down-projection).  The reference
+embedding, each invocation with its own down-projection) and ``ssm``
+(xlstm: mLSTM layers only, no attention).  The reference
 stacks each layer group's parameters on a ``layers`` axis and drives it with
 ``lax.scan``; here a group is an ``nn.ModuleList`` of per-layer modules and
 the scan is a Python loop.  The KV caches and the Mamba states are
-preallocated per layer and updated in place by :meth:`LM.decode` (the
-reference returns updated copies).
+preallocated per layer and the Mamba and mLSTM states come from the
+prefill; all are updated in place by :meth:`LM.decode` (the reference
+returns updated copies).
 
 Every phase is wrapped in a communication region, as in the reference:
 ``embed``, ``attn``, ``mlp``, ``ssm``, ``shared_attn``, ``lm_head``.
@@ -17,8 +19,8 @@ Without a device mesh the reference's ``shard_act`` is the identity, so the
 port leaves it out.
 
 Other families and kinds raise ``NotImplementedError`` naming the slice of
-the port that brings them: ``mlstm`` (ssm, with ``mlstm_scan``), ``moe``,
-MLA and the VLM's M-RoPE.
+the port that brings them: ``moe``, MLA, the VLM's M-RoPE and the
+encoder-decoder.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.regions import comm_region
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
+from repro_torch.models import xlstm as X
 from repro_torch.models.params import (
     ParamDef,
     ParamTree,
@@ -44,7 +47,6 @@ from repro_torch.models.params import (
 #: the slice of the port that brings each family this one cannot run
 _LATER = {
     "moe": "the MoE slice (attn_moe layers)",
-    "ssm": "the xlstm slice (mlstm layers and mlstm_scan)",
     "vlm": "the VLM slice (M-RoPE and the vision prefix)",
     "encdec": "the encoder-decoder slice",
     "audio": "the encoder-decoder slice",
@@ -56,7 +58,7 @@ def check_supported(cfg) -> None:
     later = _LATER.get(cfg.family, f"no slice yet (family {cfg.family!r})")
     if cfg.mla is not None:
         later = "the MLA slice (minicpm3's latent KV cache)"
-    elif cfg.family in ("dense", "hybrid"):
+    elif cfg.family in ("dense", "hybrid", "ssm"):
         return
     raise NotImplementedError(f"{cfg.name}: the port runs it from {later}")
 
@@ -76,6 +78,8 @@ def layer_defs(cfg, kind: str) -> dict:
         }
     elif kind == "mamba":
         d = {"norm1": B.norm_def(cfg), "ssm": M.mamba_defs(cfg)}
+    elif kind == "mlstm":
+        d = {"norm1": B.norm_def(cfg), "ssm": X.mlstm_defs(cfg)}
     else:
         raise NotImplementedError(f"layer kind {kind!r} comes with a later slice")
     return {k: v for k, v in d.items() if v is not None}
@@ -84,6 +88,8 @@ def layer_defs(cfg, kind: str) -> dict:
 def layer_plan(cfg) -> list:
     """[(kind, n_layers)]; hybrid: mamba groups of ``shared_attn_every``."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        return [("mlstm", cfg.n_layers)]
     if cfg.family == "hybrid":
         n, k = cfg.n_layers, cfg.shared_attn_every
         return [("mamba", min(k, n - i)) for i in range(0, n, k)]
@@ -156,10 +162,18 @@ def make_rope(cfg, positions: torch.Tensor) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+#: the recurrent layer kinds: (train, decode) of their block module
+_RECURRENT = {
+    "mamba": (M.mamba_train, M.mamba_decode),
+    "mlstm": (X.mlstm_train, X.mlstm_decode),
+}
+
+
 def layer_train(cfg, kind: str, p, x, ctx: Ctx):
-    if kind == "mamba":
+    if kind in _RECURRENT:
+        train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            return x + M.mamba_train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
+            return x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         x = x + B.attn_train(cfg, p["attn"], h, ctx.cos, ctx.sin)
@@ -170,9 +184,10 @@ def layer_train(cfg, kind: str, p, x, ctx: Ctx):
 
 def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
     """Returns (x, cache) for one layer."""
-    if kind == "mamba":
+    if kind in _RECURRENT:
+        train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            h, cache = M.mamba_train(
+            h, cache = train(
                 cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
             )
             return x + h, cache
@@ -186,11 +201,10 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
 
 
 def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
-    if kind == "mamba":
+    if kind in _RECURRENT:
+        _, decode = _RECURRENT[kind]
         with comm_region("ssm"):
-            h, cache = M.mamba_decode(
-                cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), cache
-            )
+            h, cache = decode(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), cache)
             return x + h, cache
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
@@ -204,6 +218,8 @@ def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
 def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
     if kind == "mamba":
         return M.mamba_state_shape(cfg, batch)
+    if kind == "mlstm":
+        return X.mlstm_state_shape(cfg, batch)
     return B.attn_cache_shape(cfg, batch, s_max)
 
 

@@ -1,16 +1,19 @@
-"""Serve a dense or hybrid LM: batched prefill, then greedy decode with caches.
+"""Serve a dense, hybrid or ssm LM: batched prefill, then greedy decode.
 
 The port's counterpart of ``examples/serve_lm.py``: the same flags, the same
 greedy argmax over the padded logits and the same prefill-then-decode loop
 with one position for the whole batch.  Attention runs through the
 hand-written flash kernel (prefill) and decode kernel (every step); a
 hybrid model's (zamba2's) Mamba-2 layers run the hand-written SSD scan at
-prefill and an O(1) recurrence at each decode step.
+prefill and an O(1) recurrence at each decode step; an ssm model's
+(xlstm's) mLSTM layers run the hand-written mLSTM scan at prefill and an
+O(1) recurrence at each decode step.
 
     python -m repro_torch.serve_lm --arch olmo-1b                # on the card
     python -m repro_torch.serve_lm --arch olmo-1b --device cpu   # on the host
     python -m repro_torch.serve_lm --arch zamba2-1.2b --full \\
         --prompt-len 1024 --new-tokens 32                        # published width
+    python -m repro_torch.serve_lm --arch xlstm-1.3b --full
 
 Without ``--full`` the config is the reduced smoke variant.  Parameters and
 prompts are random, drawn from ``--seed`` by ``torch.Generator``s on the

@@ -108,6 +108,7 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         "flash_attention": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "mlstm_scan": 0,
     }
 
 

@@ -54,9 +54,14 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 32, proc.stdout
+    assert n >= 34, proc.stdout
     imported = set(proc.stdout.split())
-    for name in ("repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"):
+    for name in (
+        "repro_torch.kernels.ssd_scan",
+        "repro_torch.models.mamba",
+        "repro_torch.kernels.mlstm_scan",
+        "repro_torch.models.xlstm",
+    ):
         assert name in imported, proc.stdout
 
 
@@ -64,7 +69,9 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 33
+    assert len(sources) >= 35
+    names = {os.path.relpath(p, _ROOT) for p in sources}
+    assert {"src/repro_torch/kernels/mlstm_scan.py", "src/repro_torch/models/xlstm.py"} <= names
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)

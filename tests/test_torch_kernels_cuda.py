@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-The attention and SSD kernels are also held, inside the reduced models,
+The attention, SSD and mLSTM kernels are also held, inside the reduced models,
 against the same models routed through the plain versions
 (``ops.plain()``).
 
@@ -19,6 +19,7 @@ from repro_torch.configs import registry
 from repro_torch.core.backend import TorchBackend
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as seg
 from repro_torch.kernels import ssd_scan as ssd
@@ -178,23 +179,28 @@ def test_ops_plain_routes_the_card_to_plain_versions(card):
     rng = np.random.default_rng(5)
     q = _randn(rng, (1, 2, 16, 64), torch.bfloat16, card)
     xh, la, bm, cm = _ssd_inputs(rng, 1, 40, 2, 32, 16, torch.bfloat16, card)
+    mq, mk, mv, lf, li = _mlstm_inputs(rng, 1, 40, 2, 64, torch.bfloat16, card)
     ops.reset_launch_counts()
     with ops.plain():
         ops.flash_attention(q, q, q)
         ops.decode_attention(q[:, :, :1], q, q, 16)
         ops.ssd_scan(xh, la, bm, cm)
+        ops.mlstm_scan(mq, mk, mv, lf, li)
     assert ops.launch_counts() == {
         "flash_attention": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "mlstm_scan": 0,
     }
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, :1], q, q, 16)
     ops.ssd_scan(xh, la, bm, cm)
+    ops.mlstm_scan(mq, mk, mv, lf, li)
     assert ops.launch_counts() == {
         "flash_attention": 1,
         "decode_attention": 1,
         "ssd_scan": 1,
+        "mlstm_scan": 1,
     }
 
 
@@ -206,16 +212,25 @@ def _launches_per_serve(cfg, n_new: int) -> dict:
             "flash_attention": n_shared,
             "decode_attention": (n_new - 1) * n_shared,
             "ssd_scan": cfg.n_layers,
+            "mlstm_scan": 0,
+        }
+    if cfg.family == "ssm":
+        return {
+            "flash_attention": 0,
+            "decode_attention": 0,
+            "ssd_scan": 0,
+            "mlstm_scan": cfg.n_layers,
         }
     return {
         "flash_attention": cfg.n_layers,
         "decode_attention": (n_new - 1) * cfg.n_layers,
         "ssd_scan": 0,
+        "mlstm_scan": 0,
     }
 
 
 @pytest.mark.parametrize(
-    "arch", ["olmo-1b", "gemma-2b", "deepseek-coder-33b", "zamba2-1.2b"]
+    "arch", ["olmo-1b", "gemma-2b", "deepseek-coder-33b", "zamba2-1.2b", "xlstm-1.3b"]
 )
 def test_reduced_model_on_card_matches_plain_versions(card, arch):
     cfg = registry.get(arch).reduced()
@@ -249,6 +264,18 @@ def test_reduced_zamba2_launch_counts():
         "flash_attention": 2,
         "decode_attention": 10,
         "ssd_scan": 5,
+        "mlstm_scan": 0,
+    }
+
+
+def test_reduced_xlstm_launch_counts():
+    """4 mLSTM layers: one scan each per prefill, none per decode step."""
+    cfg = registry.get("xlstm-1.3b").reduced()
+    assert _launches_per_serve(cfg, 6) == {
+        "flash_attention": 0,
+        "decode_attention": 0,
+        "ssd_scan": 0,
+        "mlstm_scan": 4,
     }
 
 
@@ -336,3 +363,90 @@ def test_ssd_kernel_raises_on_unsupported_sizes(card):
     xh, la, bm, cm = _ssd_inputs(rng, 1, 256, 2, 64, 64, torch.float32, card)
     with pytest.raises(ValueError):
         ssd.ssd_scan(xh, la, bm, cm, block_q=256)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM scan kernel
+# ---------------------------------------------------------------------------
+
+#: h and the final C, n, m: rtol 1e-3, atol 1e-3 * max|plain| (the sums of
+#: the kernel and the plain version run in f32 in another order)
+MLSTM_RTOL = 1e-3
+
+
+def _mlstm_inputs(rng, B, S, H, D, dtype, card, steep=False):
+    """tests/test_kernels.py's scales (k scaled by 1/√D); lf, li f32."""
+    q = _randn(rng, (B, S, H, D), dtype, card)
+    k = (_randn(rng, (B, S, H, D), torch.float32, card) / D**0.5).to(dtype)
+    v = _randn(rng, (B, S, H, D), dtype, card)
+    z = _randn(rng, (B, S, H), torch.float32, card)
+    if steep:
+        return q, k, v, -10.0 + 0.1 * z, 4.0 * _randn(rng, (B, S, H), torch.float32, card)
+    return q, k, v, torch.nn.functional.logsigmoid(2.0 * z), _randn(
+        rng, (B, S, H), torch.float32, card
+    )
+
+
+def _mlstm_close(got, want):
+    (h, state), (h_p, state_p) = got, want
+    for g, w in zip((h, *state), (h_p, *state_p)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        tol = MLSTM_RTOL * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=MLSTM_RTOL, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,D,Q,kind",
+    [
+        (1, 256, 2, 1024, 128, None),  # xlstm-1.3b's head dim
+        (1, 200, 2, 1024, 128, "state"),  # an initial state, a ragged chunk
+        (2, 256, 4, 64, 16, None),  # the reduced xlstm
+        (1, 1, 4, 1024, 128, None),  # one position
+        (1, 300, 2, 96, 128, "steep"),  # a D tile of 32, steep gates
+        (1, 33, 1, 32, 8, None),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_matches_plain_version(card, B, S, H, D, Q, kind, dtype):
+    rng = np.random.default_rng(S + D)
+    q, k, v, lf, li = _mlstm_inputs(rng, B, S, H, D, dtype, card, kind == "steep")
+    state = None
+    if kind == "state":
+        state = (
+            0.1 * _randn(rng, (B, H, D, D), torch.float32, card),
+            0.1 * _randn(rng, (B, H, D), torch.float32, card),
+            _randn(rng, (B, H), torch.float32, card),
+        )
+    before = ms.launch_count()
+    got = ms.mlstm_scan(q, k, v, lf, li, state, block_q=Q)
+    torch.cuda.synchronize()
+    assert ms.launch_count() == before + 1
+    _mlstm_close(got, ms.mlstm_scan_plain(q, k, v, lf, li, state, block_q=Q))
+
+
+def test_mlstm_kernel_takes_strided_inputs(card):
+    """q/k/v as slices of one projection and the gates as slices of one
+    tensor, as a model may pass them."""
+    rng = np.random.default_rng(21)
+    B, S, H, D = 2, 150, 2, 64
+    qkv = _randn(rng, (B, S, H, 3 * D), torch.bfloat16, card)
+    q, k, v = qkv[..., :D], qkv[..., D : 2 * D] * 0.125, qkv[..., 2 * D :]
+    gates = _randn(rng, (B, S, 2 * H), torch.float32, card)
+    lf = torch.nn.functional.logsigmoid(gates[..., :H])
+    li = gates[..., H:]
+    assert not q.is_contiguous() and not li.is_contiguous()
+    got = ms.mlstm_scan(q, k, v, lf, li, block_q=64)
+    want = ms.mlstm_scan_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), lf, li.contiguous(), block_q=64
+    )
+    _mlstm_close(got, want)
+
+
+def test_mlstm_kernel_raises_on_unsupported_sizes(card):
+    rng = np.random.default_rng(22)
+    q, k, v, lf, li = _mlstm_inputs(rng, 1, 16, 2, 48, torch.float32, card)
+    with pytest.raises(ValueError):
+        ms.mlstm_scan(q, k, v, lf, li)  # D = 48
+    q, k, v, lf, li = _mlstm_inputs(rng, 1, 256, 2, 64, torch.float32, card)
+    with pytest.raises(ValueError):
+        ms.mlstm_scan(q, k, v, lf, li, block_q=256)

@@ -123,7 +123,6 @@ def test_bf16_crosses_bit_for_bit():
     "arch",
     [
         "minicpm3-4b",
-        "xlstm-1.3b",
         "granite-moe-3b-a800m",
         "qwen2-vl-7b",
         "seamless-m4t-medium",
