@@ -6,7 +6,10 @@
 Phases (each one fails the run with a non-zero exit on any mismatch):
 
 1. card — the device's name, and ``nvidia-smi``'s name and power limit;
-2. build — compile the CUDA kernels from ``src/repro_torch/csrc``;
+2. build — compile the CUDA kernels from ``src/repro_torch/csrc``; log
+   every kernel's ``ptxas`` registers and spills, and fail unless the
+   flash library's SASS holds ``HGMMA`` (its bf16 kernel runs on the
+   tensor cores);
 3. kernel — the segmented-reduce kernel against its plain PyTorch version
    on the card at 2^24 int64 rows (about 4096 spans, one holding half the
    rows), a (2^20, 8) int64 grid and a float64 sum; its median time, the
@@ -23,8 +26,11 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 7. attention — the flash and decode kernels against their plain versions on
    the card at olmo-1b's, deepseek-coder-33b's (GQA), gemma-2b's (MQA,
    head dim 256) and zamba2-1.2b's shared-block shapes, a decode-style
-   Sq < Sk case and an odd f32 case; each case's median time, its bound, the
-   plain version's time and ``F.scaled_dot_product_attention``'s;
+   Sq < Sk case, an odd f32 case, ragged 1000-token tiles and head dim 64;
+   decode also at batch 1 over a 16000-key cache, at kv_len 1 and where
+   the last split of the keys holds one key (each decode row records its
+   split plan); each case's median time, its bound, the plain version's
+   time and ``F.scaled_dot_product_attention``'s;
 8. serve — ``python -m repro_torch.serve_lm --arch olmo-1b --full`` at its
    published width and depth (16 layers, d 2048): 4 prompts of 1024 tokens,
    32 greedy tokens; exactly 16 flash and 496 decode launches; prefill and
@@ -67,6 +73,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,6 +117,34 @@ KRIPKE_POINTS = [
     ((128, 64, 8), _SCALE),
     ((128, 128, 8), _SCALE),
 ]
+
+
+def ptxas_summary(text: str) -> list:
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas=-v``."""
+    out, name = [], None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)  # mangled: the template arguments stay in it
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            out.append({"kernel": name, "spill_stores": int(spill.group(1)),
+                        "spill_loads": int(spill.group(2))})
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out and out[-1]["kernel"] == name and "registers" not in out[-1]:
+            out[-1]["registers"] = int(regs.group(1))
+    return out
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How often ``opcode`` occurs in a built library's SASS (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(library)], capture_output=True, text=True,
+        check=True,
+    ).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def fail(msg: str) -> None:
@@ -525,15 +561,30 @@ FLASH_CASES = [
     ("zamba2-1.2b shared prefill", 4, 32, 32, 1024, 1024, 128, True, torch.bfloat16),
     ("decode-style Sq < Sk", 2, 4, 4, 64, 256, 128, True, torch.bfloat16),
     ("odd non-causal f32", 1, 2, 2, 33, 33, 32, False, torch.float32),
+    ("ragged 1000-token tiles", 1, 8, 8, 1000, 1000, 128, True, torch.bfloat16),
+    ("head dim 64", 2, 16, 16, 1024, 1024, 64, True, torch.bfloat16),
 ]
 #: decode cases: (label, B, Hq, Hkv, S, kv_len, D, dtype)
 DECODE_CASES = [
     ("olmo-1b decode", 4, 16, 16, 1056, 1040, 128, torch.bfloat16),
     ("deepseek-coder-33b GQA decode", 8, 56, 8, 32768, 30000, 128, torch.bfloat16),
     ("zamba2-1.2b shared decode", 4, 32, 32, 1056, 1040, 128, torch.bfloat16),
+    ("olmo-1b batch 1, long cache", 1, 16, 16, 16384, 16000, 128, torch.bfloat16),
+    ("olmo-1b kv_len 1", 4, 16, 16, 1056, 1, 128, torch.bfloat16),
+    ("olmo-1b last split of 1 key", 4, 16, 16, 1056, 769, 128, torch.bfloat16),
 ]
 #: tests/test_kernels.py's tolerances: bf16 2e-2, f32 2e-5 (rtol = atol)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def row_scaled_excess(got, want, tol: float) -> float:
+    """How far |got - want| passes rtol = tol and atol = tol * the row's
+    largest |want| (a row is one query's D outputs), at its worst; <= 0 holds.
+    Over a long cache an output row is a few hundredths, so an absolute 2e-2
+    cannot see a key range dropped or weighted wrongly: this rule can."""
+    got, want = got.float(), want.float()
+    scale = want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() - tol * (want.abs() + scale)).max())
 
 
 def _attn_timings(kernel, plain, library) -> dict:
@@ -550,12 +601,20 @@ def _attn_timings(kernel, plain, library) -> dict:
     }
 
 
-def _attn_row(label, kind, shape, dtype, got, want, lib_out, timings, work, card):
+def _attn_row(label, kind, shape, dtype, got, want, lib_out, timings, work, card,
+              **extra):
     """Check kernel and library against the plain version; the case's row."""
     tol = ATTN_TOL[dtype]
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"{kind} {label}: kernel differs from its plain version (max {err})")
+    # bf16 rows also against the rule scaled to each row (f32's 2e-5 is
+    # already well below its outputs)
+    excess = row_scaled_excess(got, want, tol) if dtype == torch.bfloat16 else None
+    if excess is not None and excess > 0:
+        fail(f"{kind} {label}: kernel differs from its plain version by "
+             f"{excess} past the row-scaled rule (rtol {tol}, atol {tol} * "
+             "the row's max |plain|)")
     lib_err = float((lib_out.float() - want.float()).abs().max())
     if not torch.allclose(lib_out.float(), want.float(), rtol=tol, atol=tol):
         fail(f"{kind} {label}: sdpa differs from the plain version (max {lib_err})")
@@ -569,19 +628,23 @@ def _attn_row(label, kind, shape, dtype, got, want, lib_out, timings, work, card
         "shape": shape,
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": err,
+        "row_scaled_excess": excess,
         "sdpa_max_abs_err": lib_err,
         **timings,
         "flops": flops,
         "bytes": nbytes,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        **extra,
     }
     log(
-        f"attention {kind} {label} {shape} {row['dtype']}: ms={row['ms']:.4f} "
+        f"attention {kind} {label} {shape} {row['dtype']}{extra or ''}: "
+        f"ms={row['ms']:.4f} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
         f"plain_ms={row['plain_ms']:.3f} sdpa_ms={row['library_ms']:.4f} "
         f"call_ms={row['call_ms']:.4f} queued={row['queued']} "
-        f"max_abs_err={err} sdpa_max_abs_err={lib_err}"
+        f"max_abs_err={err} row_scaled_excess={excess} "
+        f"sdpa_max_abs_err={lib_err}"
     )
     return row
 
@@ -633,6 +696,11 @@ def attention_phase(card: str) -> tuple:
     for label, b, hq, hkv, s, kv_len, d, dtype in DECODE_CASES:
         q = randn(b, hq, 1, d, dtype=dtype)
         k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
+        n_split, per = dec.card_split_plan(q, k, kv_len)
+        wave = dec.card_wave(q.device, dtype, d)
+        if "last split" in label and (n_split < 2 or (kv_len - 1) % per):
+            fail(f"decode {label}: plan ({n_split}, {per}) for kv_len {kv_len} "
+                 "does not leave one key in the last split")
         got = dec.decode_attention(q, k, v, kv_len)
         torch.cuda.synchronize()
         want = dec.decode_attention_plain(q, k, v, kv_len)
@@ -651,7 +719,8 @@ def attention_phase(card: str) -> tuple:
         work = (4 * b * hq * d * kv_len, (2 * b * hq + 2 * b * hkv * kv_len) * d * es)
         decode_rows.append(
             _attn_row(label, "decode", [b, hq, hkv, s, kv_len, d], dtype, got, want,
-                      library(), timings, work, card)
+                      library(), timings, work, card, n_split=n_split,
+                      keys_per_split=per, **wave)
         )
         del q, k, v, got, want
     torch.cuda.empty_cache()
@@ -1609,10 +1678,17 @@ def main() -> None:
     (OUT_DIR / "nvcc.log").write_text(
         "".join(f"== {n}\n{text}" for n, text in build_logs.items())
     )
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  nvcc[{name}]: {line.strip()}")
+    ptxas = {name: ptxas_summary(text) for name, text in build_logs.items()}
+    for name, kernels in ptxas.items():
+        for k in kernels:
+            log(f"  ptxas[{name}] {k['kernel']}: {k.get('registers')} registers, "
+                f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
+                "bytes spill loads")
+    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
+    if not hgmma:
+        fail("build: the flash library's SASS holds no HGMMA: its bf16 kernel "
+             "does not run on the tensor cores")
+    log(f"build: the flash library's SASS holds {hgmma} HGMMA instructions")
 
     # 3. kernel against its plain version
     cases = kernel_phase(seg, bw)
@@ -1691,6 +1767,8 @@ def main() -> None:
         "nvidia_smi": smi,
         "memory_rate": bw_name,
         "build_s": build_s,
+        "ptxas": ptxas,
+        "flash_hgmma": hgmma,
         "kernel_cases": cases,
         "kripke": kripke_rows,
         "kripke_frame_rows": frame_rows,

@@ -35,6 +35,9 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
+#: after the source: libcuda, whose ``cuTensorMapEncodeTiled`` builds the
+#: flash kernel's TMA descriptors on the host
+LINK_FLAGS = ("-lcuda",)
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -50,7 +53,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built (hash of its source)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS)
+    digest = hashlib.sha256(src.read_bytes() + flags.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,7 +69,8 @@ def build(name: str) -> str:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    src = str(CSRC_DIR / f"{name}.cu")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src, *LINK_FLAGS]
     proc = subprocess.run(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

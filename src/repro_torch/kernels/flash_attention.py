@@ -3,12 +3,21 @@
 The port of ``repro/kernels/flash_attention.py::flash_attention`` to a kernel
 written by hand for Hopper: ``csrc/flash_attention.cu``, CUDA C++ for
 ``sm_90a``, built with ``nvcc`` at first use and loaded with ``ctypes``
-(see :mod:`repro_torch.kernels._build`).  One thread block owns a 64-row
-query block of one head and loops over 32-key K/V tiles up to the causal
-limit, with the running max, sum and accumulator in f32; the kv head is
-``h // (Hq // Hkv)``, so GQA and MQA never repeat K/V.  The products run on
-the CUDA cores in f32, so the kernel is bound by operations, well below the
-card's bf16 tensor-core rate; tensor cores (wgmma) are later work.
+(see :mod:`repro_torch.kernels._build`).  The kernel is chosen by dtype:
+
+* bf16 runs on the tensor cores: a block owns 128 query rows of one head
+  (two warpgroups of 64 rows), TMA brings the query tile once and K/V tiles
+  into a ring of two stages, ``wgmma`` computes S = Q K^T from shared memory
+  and O += P V with P from registers as two bf16 parts, hi + lo (about 16
+  significant bits; the TPU kernel keeps P in f32, and a single bf16 P broke
+  the reduced models' end-to-end rule on the card).  TMA needs 16-byte
+  aligned bases and (b, h, s) strides: :func:`flash_attention` raises for a
+  view that breaks this rather than copying it.
+* f32 runs the SIMT kernel of the first port: products on the CUDA cores in
+  f32, 64-row query blocks, 32-key tiles.
+
+Both keep the running max, sum and accumulator in f32, and take the kv head
+as ``h // (Hq // Hkv)``, so GQA and MQA never repeat K/V.
 
 :func:`flash_attention` is the wrapper.  For a tensor on the CPU it runs
 :func:`flash_attention_plain`, the plain PyTorch version of the same
@@ -80,6 +89,24 @@ def kernel_args(q, k, v, out) -> tuple:
     return q, k, v, (ctypes.c_int64 * 12)(*strides)
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's base and its (b, h, s) strides are whole
+    16-byte units (a stride along a dim of size 1 is never used).
+
+    The bf16 flash kernel's TMA copies and the decode kernel's 16-byte
+    copies need this; a view that breaks it is refused, not copied.
+    """
+    for t in tensors:
+        es = t.element_size()
+        steps = [s * es for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(s % 16 for s in steps):
+            raise ValueError(
+                f"the {name} kernel needs 16-byte aligned bases and (b, h, s) "
+                f"strides; got base {t.data_ptr() % 16} bytes past 16, strides "
+                f"{t.stride()} of {t.dtype}"
+            )
+
+
 def check_kernel_inputs(name: str, q: torch.Tensor) -> None:
     """Raise for a device, dtype or head dim the CUDA kernel does not take."""
     if q.device.type != "cuda":
@@ -149,6 +176,8 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if sk == 0:
         raise ValueError("attention over zero keys")
     q, k, v, strides = kernel_args(q, k, v, out)
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(

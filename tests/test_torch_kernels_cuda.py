@@ -165,6 +165,137 @@ def test_decode_kernel_matches_plain_version(card, B, Hq, Hkv, S, D, kv_len, dty
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
 
 
+def _assert_attn_close(got, want, dtype):
+    """The kernels' tolerance and, in bf16, the same tolerance scaled to each
+    output row's largest |value|: over a long cache the outputs are a few
+    hundredths, where an absolute 2e-2 would not see a key range dropped or
+    weighted wrongly."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **_attn_tol(dtype))
+    if dtype == torch.bfloat16:
+        tol = _attn_tol(dtype)["rtol"]
+        scale = want.abs().amax(-1, keepdim=True)
+        excess = (got - want).abs() - tol * (want.abs() + scale)
+        assert float(excess.max()) <= 0, f"past the row-scaled bound by {excess.max()}"
+
+
+def _flash_once(q, k, v, causal):
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_count() == before + 1
+    return got
+
+
+@pytest.mark.parametrize("S", [127, 128, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tile_edges(card, S, causal):
+    """Sequence lengths around the 128-row query block and 128-key tile."""
+    rng = np.random.default_rng(S)
+    q = _randn(rng, (1, 4, S, 128), torch.bfloat16, card)
+    k = _randn(rng, (1, 2, S, 128), torch.bfloat16, card)
+    v = _randn(rng, (1, 2, S, 128), torch.bfloat16, card)
+    got = _flash_once(q, k, v, causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    _assert_attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (70, 333)])
+def test_flash_bf16_every_head_dim(card, D, Sq, Sk):
+    """Each head dim's swizzle (64-byte at D 32, 128-byte above) and tile."""
+    rng = np.random.default_rng(D + Sq)
+    q = _randn(rng, (2, 4, Sq, D), torch.bfloat16, card)
+    k = _randn(rng, (2, 2, Sk, D), torch.bfloat16, card)
+    v = _randn(rng, (2, 2, Sk, D), torch.bfloat16, card)
+    for causal in (True, False):
+        got = _flash_once(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        _assert_attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_takes_einsum_views_as_they_are(card, D):
+    """The model's bsd,dhk->bhsk views (head stride D, sequence stride H D)
+    go to TMA without a copy."""
+    rng = np.random.default_rng(D)
+    x = _randn(rng, (2, 300, 256), torch.bfloat16, card)
+    w = _randn(rng, (256, 3, 4, D), torch.bfloat16, card) * 0.1
+    q, k, v = (torch.einsum("bsd,dhk->bhsk", x, w[:, i]) for i in range(3))
+    assert q.stride()[1:] == (D, 4 * D, 1)
+    got = _flash_once(q, k, v, True)
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    _assert_attn_close(got, want, torch.bfloat16)
+
+
+def test_attention_kernels_refuse_misaligned_views(card):
+    """A view 2 bytes past a 16-byte boundary: TMA and the 16-byte copies
+    cannot take it, and the wrappers raise rather than copy."""
+    flat = torch.zeros(2 * 4 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
+    bad = flat[1:].view(2, 4, 64, 64)
+    good = torch.zeros((2, 4, 64, 64), dtype=torch.bfloat16, device=card)
+    before = fa.launch_count(), dec.launch_count()
+    with pytest.raises(ValueError):
+        fa.flash_attention(bad, good, good)
+    with pytest.raises(ValueError):
+        fa.flash_attention(good, good, bad)
+    with pytest.raises(ValueError):
+        dec.decode_attention(good[:, :, :1], bad, good, 10)
+    assert (fa.launch_count(), dec.launch_count()) == before
+
+
+def _decode_once(q, k, v, kv_len):
+    before = dec.launch_count()
+    got = dec.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert dec.launch_count() == before + 1
+    return got
+
+
+#: kv_len = splits * per + offset, where per is a range's length in this
+#: card's plan for (B 2, 16 kv heads, MHA, kv_len 1040): 1, and one less,
+#: exactly and one more than the first two range boundaries
+SPLIT_EDGES = [(0, 1), (1, -1), (1, 0), (1, 1), (2, -1), (2, 0), (2, 1)]
+
+
+@pytest.mark.parametrize("splits,offset", SPLIT_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_edges(card, splits, offset, dtype):
+    rng = np.random.default_rng(10 * splits + offset)
+    q = _randn(rng, (2, 16, 1, 128), dtype, card)
+    k = _randn(rng, (2, 16, 1100, 128), dtype, card)
+    v = _randn(rng, (2, 16, 1100, 128), dtype, card)
+    n, per = dec.card_split_plan(q, k, 1040)
+    assert n > 1
+    kv_len = splits * per + offset
+    got = _decode_once(q, k, v, kv_len)
+    want = dec.decode_attention_plain(q, k, v, kv_len)
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,D,kv_len",
+    [
+        (1, 16, 16, 9216, 128, 9000),  # batch 1: many splits
+        (1, 56, 8, 9216, 128, 9000),  # 7-head groups, many splits
+        (2, 14, 2, 3000, 64, 2999),  # 7-head groups, a few splits
+        (1, 8, 1, 5000, 256, 4097),  # MQA at gemma's head dim, 32-key tiles
+        (1, 4, 4, 4096, 32, 4096),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_many_splits(card, B, Hq, Hkv, S, D, kv_len, dtype):
+    rng = np.random.default_rng(kv_len + D)
+    q = _randn(rng, (B, Hq, 1, D), dtype, card)
+    k = _randn(rng, (B, Hkv, S, D), dtype, card)
+    v = _randn(rng, (B, Hkv, S, D), dtype, card)
+    n_split, _ = dec.card_split_plan(q, k, kv_len)
+    assert n_split > 1
+    got = _decode_once(q, k, v, kv_len)
+    want = dec.decode_attention_plain(q, k, v, kv_len)
+    _assert_attn_close(got, want, dtype)
+
+
 def test_attention_kernels_raise_on_unsupported_head_dim(card):
     q = torch.zeros((1, 2, 8, 48), device=card)
     with pytest.raises(ValueError):
