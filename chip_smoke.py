@@ -8,12 +8,16 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 1. card — the device's name, and ``nvidia-smi``'s name and power limit;
 2. build — compile the CUDA kernels from ``src/repro_torch/csrc``; log
    every kernel's ``ptxas`` registers and spills, and fail unless the
-   flash library's SASS holds ``HGMMA`` (its bf16 kernel runs on the
-   tensor cores);
+   flash and mLSTM libraries' SASS holds ``HGMMA`` (their bf16 kernels run
+   on the tensor cores);
 3. kernel — the segmented-reduce kernel against its plain PyTorch version
    on the card at 2^24 int64 rows (about 4096 spans, one holding half the
-   rows), a (2^20, 8) int64 grid and a float64 sum; its median time, the
-   bytes bound, the plain version's time and ``scatter_reduce_``'s;
+   rows), a (2^20, 8) int64 grid and a float64 sum, then spans of exactly
+   one piece and of one piece and a row, empty spans among long ones, and
+   the HLO corpus's own reductions (the arguments phase 5's calls pass);
+   each case's rows a piece, cuts and pieces, its time a call (CUDA
+   events) and its device time with the launches queued, the same two for
+   ``scatter_reduce_``, the bytes bound and the plain version's time;
 4. kripke — ``repro_torch.apps.kripke.profile`` at the paper's Dane points
    and the weak-scale points up to 131072 ranks, each trace reduced on the
    card and with the port's ``NumpyBackend`` (byte-equal ``to_json()``;
@@ -52,16 +56,18 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    final (C, n, m), at xlstm-1.3b's prefill shape (B 4, S 1024, 4 heads,
    head dim 1024) in bf16 and f32, a ragged S 1000, S 1, a long S 16384,
    the reduced head dim 64 with chunks of 16, a given initial state and
-   steep gates; each case's device time, per-call time, bound and the plain
-   version's time (no single PyTorch call computes this function, so there
-   is no library time);
+   steep gates; each case's route (``wgmma`` or ``mma.sync``), device
+   time, per-call time, bound and the plain version's time (no single
+   PyTorch call computes this function, so there is no library time);
 12. xlstm — ``python -m repro_torch.serve_lm --arch xlstm-1.3b --full`` at
    its published width and depth (48 mLSTM layers, d 2048, 4 heads of
    1024): 4 prompts of 1024 tokens, 32 greedy tokens; exactly 48 mLSTM
    launches and no other kernel; every mLSTM call held to its plain version
-   in the model; the full-width model in f32, and the reduced xlstm in bf16
-   and f32, end to end against the same model under ``ops.plain()`` and
-   against teacher forcing.
+   in the model; the prefill's card time split by ``torch.profiler`` into
+   the mLSTM state, W and gate passes, the projections and the rest; the
+   full-width model in f32, and the reduced xlstm in bf16 and f32, end to
+   end against the same model under ``ops.plain()`` and against teacher
+   forcing.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -260,7 +266,19 @@ def device_profile(fn) -> dict:
         "device_ms": sum(kernels.values()),
         "launches": launches,
         "top": [[name[:80], ms] for name, ms in top],
+        "kernels": kernels,
     }
+
+
+def split_kernels(kernels: dict, groups: dict) -> dict:
+    """Device ms of a profile's kernels by group: the first group whose
+    name pattern (a regex) matches a kernel's name takes it; "rest" the
+    others."""
+    out = dict.fromkeys([*groups, "rest"], 0.0)
+    for name, ms in kernels.items():
+        group = next((g for g, pat in groups.items() if re.search(pat, name)), "rest")
+        out[group] += ms
+    return out
 
 
 def spans_with_giant(rng, n: int, n_spans: int) -> tuple:
@@ -282,9 +300,46 @@ def random_spans(rng, n: int, n_spans: int) -> tuple:
     return starts, np.append(cuts, n).astype(np.int64)
 
 
-def kernel_phase(seg, bw: float) -> list:
+def piece_edge_spans(rows: int) -> tuple:
+    """Spans of exactly ``rows`` rows, of ``rows`` + 1, and empty spans among
+    long ones (the two-pass plan's edges), tiling their rows."""
+    lens = [rows, rows + 1, 0, 40 * rows + 17, 0, 0, rows, rows + 1, 3, 0, 7 * rows]
+    ends = np.cumsum(lens).astype(np.int64)
+    return ends - np.asarray(lens, np.int64), ends
+
+
+def hlo_reductions(seg) -> list:
+    """The (vals, starts, ends, op) of every segmented reduce that
+    ``Frame.from_hlo`` runs on the card over the HLO corpus, module by module
+    and over the whole corpus (phase 5's calls), recorded by wrapping the
+    kernel's wrapper for the duration."""
+    from repro_torch.core.hlo import scan_hlo_collectives
+    from repro_torch.core.thicket import Frame
+
+    calls, wrapped = [], seg.segment_reduce
+
+    def record(vals, starts, ends, op):
+        calls.append((vals.clone(), starts.clone(), ends.clone(), op))
+        return wrapped(vals, starts, ends, op)
+
+    seg.segment_reduce = record
+    try:
+        entries = []
+        for path in sorted((ROOT / "tests" / "fixtures" / "hlo").glob("*.txt")):
+            expected = json.loads(path.with_name(f"{path.stem}.expected.json").read_text())
+            buf = scan_hlo_collectives(path.read_text(), expected["total_devices"], with_loops=True)
+            entries.append((path.stem, 8, buf))
+            Frame.from_hlo(entries[-1:])
+        Frame.from_hlo(entries)  # the whole-corpus frame, as phase 5 builds it
+    finally:
+        seg.segment_reduce = wrapped
+    return calls
+
+
+def reduce_cases(piece_rows: int) -> list:
+    """Phase 3's seven cases and the piece edges at ``piece_rows`` rows a
+    piece, as host ``(label, vals, starts, ends, op)``, made from ``SEED``."""
     rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
     n_seg_rows = 1 << 24
     seg_starts, seg_ends = spans_with_giant(rng, n_seg_rows, 4096)
     seg_int = rng.integers(0, 1 << 40, (n_seg_rows, 1), dtype=np.int64)
@@ -292,35 +347,78 @@ def kernel_phase(seg, bw: float) -> list:
     grid_rows = 1 << 20
     blk_starts, blk_ends = random_spans(rng, grid_rows, 4096)
     blk_int = rng.integers(0, 1 << 40, (grid_rows, 8), dtype=np.int64)
-    lib_op = {"sum": "sum", "max": "amax", "min": "amin"}
-    cases = [
-        ("segment_reduce", seg_int, seg_starts, seg_ends, op)
-        for op in ("sum", "max", "min")
-    ]
-    cases += [
-        ("block_reduce", blk_int, blk_starts, blk_ends, op)
-        for op in ("sum", "max", "min")
-    ]
+    edge_starts, edge_ends = piece_edge_spans(piece_rows)
+    edge_int = rng.integers(0, 1 << 62, (int(edge_ends[-1]), 1), dtype=np.int64)
+    ops = ("sum", "max", "min")
+    cases = [("segment_reduce", seg_int, seg_starts, seg_ends, op) for op in ops]
+    cases += [("block_reduce", blk_int, blk_starts, blk_ends, op) for op in ops]
     cases.append(("segment_reduce_f64", seg_f64, seg_starts, seg_ends, "sum"))
+    cases += [("piece edges", edge_int, edge_starts, edge_ends, op) for op in ops]
+    return cases
+
+
+def reduce_timings(seg, vals, starts, ends, op: str, runs: int = 20) -> dict:
+    """The segmented reduce of ``seg`` and one ``scatter_reduce_`` call of the
+    same function on the card: ``ms`` / ``library_ms`` are CUDA-event times
+    of one call (host launch cost included), ``device_ms`` /
+    ``library_device_ms`` the device time a call with the launches queued
+    (:func:`device_ms`).  ``check`` says whether ``scatter_reduce_`` and
+    the kernel gave the same result (bit-equal for integers, 1e-12 ×
+    max|result| for floats)."""
+    s, c = starts.shape[0], vals.shape[1]
+    ids = torch.repeat_interleave(torch.arange(s, device=vals.device), ends - starts)
+    ids = ids.unsqueeze(1).expand(-1, c).contiguous()
+    lib_op = {"sum": "sum", "max": "amax", "min": "amin"}[op]
+    init = seg.init_value(op, vals.dtype)
+
+    def kernel():
+        return seg.segment_reduce(vals, starts, ends, op)
+
+    def library():
+        out = torch.full((s, c), init, dtype=vals.dtype, device=vals.device)
+        return out.scatter_reduce_(0, ids, vals[: ids.shape[0]], lib_op, include_self=True)
+
+    k_out, lib_out = kernel(), library()
+    if vals.dtype.is_floating_point:
+        tol = 1e-12 * float(lib_out.abs().max()) if s else 0.0
+        check = float((k_out - lib_out).abs().max()) <= tol if s else True
+    else:
+        check = torch.equal(k_out, lib_out)
+    k_dev, lib_dev = device_ms(kernel, runs), device_ms(library, runs)
+    return {
+        "ms": cuda_ms(kernel, runs),
+        "device_ms": k_dev["ms"],
+        "library_ms": cuda_ms(library, runs),
+        "library_device_ms": lib_dev["ms"],
+        "queued": k_dev["queued"] and lib_dev["queued"],
+        "library_agrees": check,
+        "library_out": lib_out,
+    }
+
+
+def kernel_phase(seg, bw: float) -> list:
+    dev = torch.device("cuda")
+    cases = reduce_cases(seg.rows_per_piece(1))
+    hlo_calls = hlo_reductions(seg)
+    if not hlo_calls:
+        fail("kernel: the HLO corpus ran no segmented reduce")
+    cases += [
+        (f"hlo corpus {i}", vals, starts, ends, op)
+        for i, (vals, starts, ends, op) in enumerate(hlo_calls)
+    ]
     results = []
     for label, host_vals, starts_np, ends_np, op in cases:
-        vals = torch.from_numpy(host_vals).to(dev)
-        starts = torch.from_numpy(starts_np).to(dev)
-        ends = torch.from_numpy(ends_np).to(dev)
+        vals, starts, ends = (
+            t.to(dev) if torch.is_tensor(t) else torch.from_numpy(t).to(dev)
+            for t in (host_vals, starts_np, ends_np)
+        )
         n, c = vals.shape
         s = starts.shape[0]
         got = seg.segment_reduce(vals, starts, ends, op)
         torch.cuda.synchronize()
         want = seg.segment_reduce_plain(vals, starts, ends, op)
-        ids = torch.repeat_interleave(torch.arange(s, device=dev), ends - starts)
-        ids = ids.unsqueeze(1).expand(n, c).contiguous()
-        init = seg.init_value(op, vals.dtype)
-
-        def library():
-            out = torch.full((s, c), init, dtype=vals.dtype, device=dev)
-            return out.scatter_reduce_(0, ids, vals, lib_op[op], include_self=True)
-
-        lib_out = library()
+        timings = reduce_timings(seg, vals, starts, ends, op)
+        lib_out = timings.pop("library_out")
         if vals.dtype.is_floating_point:
             err = float((got - want).abs().max())
             tol = 1e-12 * float(want.abs().max())
@@ -334,6 +432,9 @@ def kernel_phase(seg, bw: float) -> list:
                 fail(f"{label} {op}: kernel differs from its plain version")
             if not torch.equal(lib_out, want):
                 fail(f"{label} {op}: scatter_reduce_ differs from the plain version")
+        rows = seg.rows_per_piece(c)
+        cuts = seg.cut_count(n, rows)
+        pieces = seg.pieces(starts, ends, n, rows)[0].shape[0]
         nbytes = (n * c + s * c) * vals.element_size() + 2 * s * 8
         row = {
             "case": label,
@@ -341,24 +442,50 @@ def kernel_phase(seg, bw: float) -> list:
             "dtype": str(vals.dtype).replace("torch.", ""),
             "shape": [n, c],
             "spans": s,
-            "longest_span": int((ends - starts).max()),
+            "longest_span": int((ends - starts).max()) if s else 0,
+            "rows_per_piece": rows,
+            "cuts": cuts,
+            "pieces": pieces,
+            "passes": 2 if cuts else 1,
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: seg.segment_reduce(vals, starts, ends, op), 20),
+            "ms": timings["ms"],
+            "device_ms": timings["device_ms"],
             "plain_ms": cuda_ms(
                 lambda: seg.segment_reduce_plain(vals, starts, ends, op), 3, 1
             ),
-            "library_ms": cuda_ms(library, 20),
+            "library_ms": timings["library_ms"],
+            "library_device_ms": timings["library_device_ms"],
+            "queued": timings["queued"],
             "bytes": nbytes,
             "bound_ms": nbytes / bw * 1e3,
         }
         results.append(row)
+        if not label.startswith("hlo corpus"):
+            log(
+                f"kernel {label} {op} {row['dtype']} ({n}, {c}) spans={s} "
+                f"rows_per_piece={rows} cuts={cuts} pieces={pieces} passes={row['passes']}: "
+                f"ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+                f"scatter_reduce_ms={row['library_ms']:.4f} "
+                f"scatter_reduce_device_ms={row['library_device_ms']:.4f} "
+                f"queued={row['queued']} max_abs_err={err}"
+            )
+        del vals, starts, ends, got, want, lib_out
+    hlo = [r for r in results if r["case"].startswith("hlo corpus")]
+    log(
+        f"kernel hlo corpus: {len(hlo)} reductions, rows {min(r['shape'][0] for r in hlo)}"
+        f"..{max(r['shape'][0] for r in hlo)}, spans {min(r['spans'] for r in hlo)}"
+        f"..{max(r['spans'] for r in hlo)}, all one pass: "
+        f"{all(r['passes'] == 1 for r in hlo)}"
+    )
+    for key, lib_key in (("ms", "library_ms"), ("device_ms", "library_device_ms")):
         log(
-            f"kernel {label} {op} {row['dtype']} ({n}, {c}) spans={s}: "
-            f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.2f} scatter_reduce_ms="
-            f"{row['library_ms']:.4f} max_abs_err={err}"
+            f"kernel hlo corpus {key}: kernel sum {sum(r[key] for r in hlo):.4f} "
+            f"(median {statistics.median(r[key] for r in hlo):.4f}) against "
+            f"scatter_reduce_ sum {sum(r[lib_key] for r in hlo):.4f} (median "
+            f"{statistics.median(r[lib_key] for r in hlo):.4f}); faster in "
+            f"{sum(r[key] < r[lib_key] for r in hlo)}/{len(hlo)}"
         )
-        del vals, starts, ends, got, want, ids, lib_out
     return results
 
 
@@ -1411,6 +1538,7 @@ def mlstm_phase(card: str) -> list:
             "shape": [b, s, h, d],
             "dtype": str(dtype).replace("torch.", ""),
             "chunk": chunk,
+            "route": ms.kernel_route(dtype, d),
             "max_abs_err": max(errs.values()),
             "errors": errs,
             "max_abs_h": max_h,
@@ -1426,7 +1554,8 @@ def mlstm_phase(card: str) -> list:
         }
         rows.append(row)
         log(
-            f"mlstm {label} {row['shape']} {row['dtype']} chunk {chunk}: "
+            f"mlstm {label} {row['shape']} {row['dtype']} chunk {chunk} "
+            f"route {row['route']}: "
             f"ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
@@ -1452,6 +1581,16 @@ XLSTM_SMALL_ARGV = [
     "--arch", "xlstm-1.3b", "--batch", "4", "--prompt-len", "64",
     "--new-tokens", "8", "--seed", str(SEED),
 ]
+
+
+#: the xlstm prefill's kernels by part (regexes over the profiler's names):
+#: the mLSTM kernel's three passes, then cuBLAS's matrix products
+XLSTM_PREFILL_GROUPS = {
+    "mlstm state pass": r"state_(tc_)?kernel",
+    "mlstm W pass": r"w_(tc_)?kernel",
+    "mlstm gate pass": r"gate_kernel",
+    "projections": r"gemm|gemv|xmma|cutlass|nvjet|sm90_",
+}
 
 
 class ShadowMLSTM:
@@ -1552,6 +1691,7 @@ def xlstm_phase() -> dict:
     step = device_profile(lambda: model.decode(caches, res.tokens[:, :1], n_prompt))
     del caches
     torch.cuda.empty_cache()
+    prefill_split = split_kernels(pre["kernels"], XLSTM_PREFILL_GROUPS)
     # reported: in bf16 at this width and depth the random model is chaotic
     # (a one-step rounding difference grows through 48 layers; the JAX
     # reference's own bf16 decode drifts the same way), so the decode path
@@ -1608,6 +1748,7 @@ def xlstm_phase() -> dict:
         "decode_step_profile": step,
         "decode_idle_share": 1 - step["device_ms"] / (res.decode_s / (n_new - 1) * 1e3),
         "prefill_profile": pre,
+        "prefill_split_ms": prefill_split,
         "prefill_idle_share": 1 - pre["device_ms"] / (res.prefill_s * 1e3),
         "launches": counts,
         "mlstm_shadow": shadow.summary(),
@@ -1632,6 +1773,8 @@ def xlstm_phase() -> dict:
         f"idle share {row['decode_idle_share']:.3f})"
     )
     log(f"xlstm prefill's top kernels (ms): {pre['top']}")
+    log("xlstm prefill's card time by part (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in prefill_split.items()))
     log(f"xlstm decode step's top kernels (ms): {step['top']}")
     log(f"xlstm mlstm shadow (kernel vs plain on every call): {shadow.summary()}")
     for name, e2e in (("full-size", full_e2e), ("full-size f32", full_f32_e2e),
@@ -1684,11 +1827,13 @@ def main() -> None:
             log(f"  ptxas[{name}] {k['kernel']}: {k.get('registers')} registers, "
                 f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
                 "bytes spill loads")
-    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
-    if not hgmma:
-        fail("build: the flash library's SASS holds no HGMMA: its bf16 kernel "
-             "does not run on the tensor cores")
-    log(f"build: the flash library's SASS holds {hgmma} HGMMA instructions")
+    hgmma = {}
+    for name in ("flash_attention", "mlstm_scan"):
+        hgmma[name] = sass_count(_build.library_path(name), "HGMMA")
+        if not hgmma[name]:
+            fail(f"build: the {name} library's SASS holds no HGMMA: its bf16 "
+                 "kernels do not run on the tensor cores")
+        log(f"build: the {name} library's SASS holds {hgmma[name]} HGMMA instructions")
 
     # 3. kernel against its plain version
     cases = kernel_phase(seg, bw)
@@ -1768,7 +1913,7 @@ def main() -> None:
         "memory_rate": bw_name,
         "build_s": build_s,
         "ptxas": ptxas,
-        "flash_hgmma": hgmma,
+        "hgmma": hgmma,
         "kernel_cases": cases,
         "kripke": kripke_rows,
         "kripke_frame_rows": frame_rows,

@@ -38,6 +38,9 @@ NVCC_FLAGS = (
 #: after the source: libcuda, whose ``cuTensorMapEncodeTiled`` builds the
 #: flash kernel's TMA descriptors on the host
 LINK_FLAGS = ("-lcuda",)
+#: macros defined for a source's build, name -> ("NAME" or "NAME=VALUE", ...);
+#: they are part of the library's hash, so set them before its first load
+DEFINES: dict = {}
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -50,10 +53,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
+def _defines(name: str) -> tuple:
+    return tuple(f"-D{d}" for d in DEFINES.get(name, ()))
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built (hash of its source)."""
     src = CSRC_DIR / f"{name}.cu"
-    flags = " ".join(NVCC_FLAGS + LINK_FLAGS)
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS + _defines(name))
     digest = hashlib.sha256(src.read_bytes() + flags.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -70,7 +77,7 @@ def build(name: str) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     src = str(CSRC_DIR / f"{name}.cu")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src, *LINK_FLAGS]
+    cmd = [_nvcc(), *NVCC_FLAGS, *_defines(name), "-o", str(tmp), src, *LINK_FLAGS]
     proc = subprocess.run(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -14,11 +14,20 @@ tiled across blocks.  One call runs three CUDA kernels:
    entering every chunk (O(S) scalars);
 2. a W pass, one block per (b, h, chunk): ``W = (q kᵀ) ⊙ exp(u_j - g_q)``
    over the causal triangle, and its row sums;
-3. a state pass, one block per (b, h, 32 value columns of C̃): the block
-   keeps its ``D × 32`` slab of C̃ and its own copy of ñ in shared memory
-   across the chunk loop, runs ``q C̃``, ``W v`` and the update ``(k ⊙
-   wgt)ᵀ v`` on the tensor cores in split TF32 (about f32 accuracy),
-   writes its 32 columns of ``h`` and, at the end, of the final C̃.
+3. a state pass over the chunks in order, by one of two routes
+   (:func:`kernel_route`, chosen in plain code by dtype and head dim):
+
+   * ``"wgmma"`` (bf16): a thread-block cluster of ``D / 128`` blocks owns
+     a 64-column tile of C̃, each block 128 of its rows in f32 ``wgmma``
+     accumulators; ``q C̃``, ``W v`` and the update ``kᵀ (wgt ⊙ v)`` run on
+     ``wgmma`` with the f32 operand split into bf16 hi + lo (about 16
+     bits), q, k and v come by TMA, and the partial products of h are
+     summed across the cluster in distributed shared memory.  The W pass
+     runs on ``wgmma`` too;
+   * ``"mma.sync"`` (f32, and bf16 at head dims the clusters do not tile):
+     one block per (b, h, 32 value columns of C̃) keeps its ``D × 32``
+     slab in shared memory and runs the products on ``mma.sync`` in split
+     TF32 (about f32 accuracy).
 
 The contract is the TPU kernel's plus the final state, which is what the
 model's ``_chunked_mlstm`` returns: ``q``, ``k``, ``v`` (B,S,H,D) in bf16 or
@@ -57,6 +66,15 @@ MAX_HEAD_DIM = 1024
 MAX_CHUNK = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The kernels' two routes (:func:`kernel_route`) and their codes in the C
+#: interface: the W and state passes on ``mma.sync`` in split TF32, or on
+#: ``wgmma`` (bf16 q, k, v at head dims the clusters tile).
+_ROUTE_CODE = {"mma.sync": 0, "wgmma": 1}
+
+#: Blocks of a thread-block cluster at most (the portable size): one
+#: 64-column tile of C̃ is split over D / 128 (or D / 64) blocks of rows.
+MAX_CLUSTER = 8
 
 #: dtypes the kernel takes for q, k and v (lf, li and the state are float32).
 DTYPES = tuple(_DTYPE_CODE)
@@ -119,6 +137,20 @@ def check_inputs(q, k, v, lf, li, state=None) -> None:
         tensors += list(state)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"inputs lie on {[str(t.device) for t in tensors]}")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route a call of the kernel takes for q, k, v of ``dtype``.
+
+    ``"wgmma"``: bf16 with a head dim that is a multiple of 128 up to
+    ``128 * MAX_CLUSTER``, or of 64 up to ``64 * MAX_CLUSTER`` (one cluster
+    of blocks then holds a 64-column tile of C̃).  ``"mma.sync"``: f32, and
+    bf16 at the other head dims the kernel takes.
+    """
+    tiled = (head_dim % 128 == 0 and head_dim // 128 <= MAX_CLUSTER) or (
+        head_dim % 64 == 0 and head_dim // 64 <= MAX_CLUSTER
+    )
+    return "wgmma" if dtype == torch.bfloat16 and tiled else "mma.sync"
 
 
 def _chunk(block_q: int, seq: int) -> int:
@@ -201,7 +233,7 @@ def _vector_rows(t: torch.Tensor) -> bool:
 def _library() -> ctypes.CDLL:
     lib = _build.load("mlstm_scan")
     fn = lib.repro_mlstm_scan
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -276,6 +308,7 @@ def mlstm_scan(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tuple:
             d,
             qn,
             _DTYPE_CODE[q.dtype],
+            _ROUTE_CODE[kernel_route(q.dtype, d)],
             stream,
         )
     if err:

@@ -55,6 +55,55 @@ def test_kernel_matches_plain_version(card, dtype, n_cols):
             assert torch.equal(got, want)
 
 
+def _piece_spans(kind, n_cols):
+    """(starts, ends, n) at the kernel's own piece size: spans of exactly R
+    and R + 1 rows, empty spans among long ones, a giant span, and spans
+    with rows in no span between them."""
+    r = seg.rows_per_piece(n_cols)
+    lens = {
+        "exact": [r, 2 * r, r, 3],
+        "one-over": [r + 1, 1, r + 1, 2 * r + 1],
+        "empty": [0, 3 * r + 7, 0, 0, r, 0],
+        "giant": [5, 100, 40 * r + 13, 7, 0, 300],
+        "gaps": [3, r + 2, 2 * r, 5, 0, 3 * r + 1],
+    }[kind]
+    # "gaps": rows in no span between the spans, and past the last
+    gaps = [r, 2, r + 3, 0, 1, 2 * r] if kind == "gaps" else [0] * len(lens)
+    ends = np.cumsum(np.add(lens, gaps)).astype(np.int64)
+    return ends - np.asarray(lens, np.int64), ends, int(ends[-1]) + gaps[-1]
+
+
+@pytest.mark.parametrize("kind", ["exact", "one-over", "empty", "giant", "gaps"])
+@pytest.mark.parametrize("n_cols", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32, torch.float64])
+def test_split_spans_match_plain_version(card, kind, n_cols, dtype):
+    """Both passes on the card: integers bit-equal (the sums wrap), f32
+    max/min propagate NaN, f64 sums within 1e-12 of max|plain|."""
+    starts_np, ends_np, n = _piece_spans(kind, n_cols)
+    assert n > seg.rows_per_piece(n_cols)  # the two-pass route
+    rng = np.random.default_rng(n + n_cols)
+    if dtype.is_floating_point:
+        vals = torch.from_numpy(rng.standard_normal((n, n_cols)) * 1e3).to(card, dtype)
+        if dtype == torch.float32:
+            vals[::997, 0] = float("nan")
+    else:
+        hi = torch.iinfo(dtype).max
+        vals = torch.from_numpy(rng.integers(hi // 4, hi, (n, n_cols))).to(card, dtype)
+    starts = torch.from_numpy(starts_np).to(card)
+    ends = torch.from_numpy(ends_np).to(card)
+    for op in seg.OPS:
+        got = seg.segment_reduce(vals, starts, ends, op)
+        want = seg.segment_reduce_plain(vals, starts, ends, op)
+        if dtype == torch.float64 and op == "sum":
+            assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        elif dtype == torch.float32 and op == "sum":
+            # f32 sums in another order: within 1e-5 of the sum of |values|
+            scale = float(vals.abs().nan_to_num().sum())
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale, equal_nan=True)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 def test_int64_sums_are_exact_and_wrap_like_numpy(card):
     big = np.full((4, 1), np.iinfo(np.int64).max, np.int64)
     vals = torch.from_numpy(big).to(card)
@@ -581,3 +630,52 @@ def test_mlstm_kernel_raises_on_unsupported_sizes(card):
     q, k, v, lf, li = _mlstm_inputs(rng, 1, 256, 2, 64, torch.float32, card)
     with pytest.raises(ValueError):
         ms.mlstm_scan(q, k, v, lf, li, block_q=256)
+
+
+#: head dims of the wgmma route and the cluster each gives (D / 128, or
+#: D / 64 where D is an odd multiple of 64)
+WGMMA_DIMS = [64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024]
+
+
+@pytest.mark.parametrize("D", WGMMA_DIMS)
+@pytest.mark.parametrize(
+    "S,Q,kind",
+    [(300, 128, None), (1, 128, None), (200, 64, "state"), (130, 16, "steep")],
+    ids=["ragged", "one-position", "initial-state", "steep-chunk-16"],
+)
+def test_mlstm_wgmma_route_matches_plain_version(card, D, S, Q, kind):
+    """Every cluster size of the bf16 wgmma route, ragged chunks, S 1, an
+    initial state and steep gates, held to MLSTM_RTOL."""
+    assert ms.kernel_route(torch.bfloat16, D) == "wgmma"
+    B, H = 1, 2
+    rng = np.random.default_rng(S * D + Q)
+    q, k, v, lf, li = _mlstm_inputs(rng, B, S, H, D, torch.bfloat16, card, kind == "steep")
+    state = None
+    if kind == "state":
+        state = (
+            0.1 * _randn(rng, (B, H, D, D), torch.float32, card),
+            0.1 * _randn(rng, (B, H, D), torch.float32, card),
+            _randn(rng, (B, H), torch.float32, card),
+        )
+    got = ms.mlstm_scan(q, k, v, lf, li, state, block_q=Q)
+    torch.cuda.synchronize()
+    _mlstm_close(got, ms.mlstm_scan_plain(q, k, v, lf, li, state, block_q=Q))
+
+
+@pytest.mark.parametrize("D", [128, 1024])
+def test_mlstm_wgmma_route_takes_strided_inputs(card, D):
+    """q/k/v as slices of one projection and the gates as slices of one
+    tensor, on the wgmma route (TMA reads the strided rows as they lie)."""
+    rng = np.random.default_rng(D)
+    B, S, H = 2, 150, 2
+    qkv = _randn(rng, (B, S, H, 3 * D), torch.bfloat16, card)
+    q, k, v = qkv[..., :D], qkv[..., D : 2 * D] * D**-0.5, qkv[..., 2 * D :]
+    gates = _randn(rng, (B, S, 2 * H), torch.float32, card)
+    lf = torch.nn.functional.logsigmoid(gates[..., :H])
+    li = gates[..., H:]
+    assert not q.is_contiguous() and ms.kernel_route(q.dtype, D) == "wgmma"
+    got = ms.mlstm_scan(q, k, v, lf, li, block_q=64)
+    want = ms.mlstm_scan_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), lf, li.contiguous(), block_q=64
+    )
+    _mlstm_close(got, want)

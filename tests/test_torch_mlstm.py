@@ -238,3 +238,91 @@ def test_wrapper_refuses_bad_calls(call):
     q, k, v, f, i = (t for _, t in _inputs(3, 1, 8, 2, 32))
     with pytest.raises((ValueError, TypeError)):
         call(q, k, v, f, i)
+
+
+def _bf16_parts(x, parts):
+    """``x`` (f32) as the kernel feeds it to the tensor cores: bf16 hi, and
+    with two parts + bf16(x - hi), summed back in f32 (exact)."""
+    hi = x.bfloat16().float()
+    return hi if parts == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _wgmma_route_emulation(q, k, v, lf, li, *, block_q, parts=2):
+    """The bf16 ``wgmma`` route's arithmetic on the CPU: ``mlstm_scan_plain``'s
+    chunked math in f32, with C̃ (B of q C̃), W (A of W v) and wgt ⊙ v (B of
+    the update) rounded to bf16 parts where the kernel rounds them; q, k, v
+    are exact bf16, and ñ, q·ñ, the gates and every sum stay f32."""
+    b, s, h, d = q.shape
+    qn = min(block_q, s)
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    lff, lif = lf.float().permute(0, 2, 1), li.float().permute(0, 2, 1)
+    C = torch.zeros((b, h, d, d))
+    n = torch.zeros((b, h, d))
+    m = torch.full((b, h), ms.NEG_INF)
+    tri = torch.ones((qn, qn), dtype=torch.bool).tril()
+    out = []
+    for c0 in range(0, s, qn):
+        sl = slice(c0, c0 + qn)
+        qc, kc, vc = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl]
+        cum = lff[:, :, sl].cumsum(dim=-1)
+        u = lif[:, :, sl] - cum
+        g = torch.maximum(m[..., None], torch.cummax(u, dim=-1).values)
+        diff = u[..., None, :] - g[..., :, None]
+        W = (qc @ kc.transpose(-1, -2)) * diff.masked_fill(~tri, float("-inf")).exp()
+        carry = torch.exp(m[..., None] - g)
+        num = _bf16_parts(W, parts) @ vc + carry[..., None] * (qc @ _bf16_parts(C, parts))
+        den = (W.sum(dim=-1) + carry * (qc @ n[..., None])[..., 0]).abs()
+        out.append(num / torch.maximum(den, torch.exp(-(cum + g)))[..., None])
+        gq = g[..., -1]
+        wgt = torch.exp(u - gq[..., None])
+        decay = torch.exp(m - gq)
+        wv = _bf16_parts(wgt[..., None] * vc, parts)
+        C = decay[..., None, None] * C + kc.transpose(-1, -2) @ wv
+        n = decay[..., None] * n + (kc * wgt[..., None]).sum(dim=2)
+        m = cum[..., -1] + gq
+    hs = torch.cat(out, dim=2).permute(0, 2, 1, 3)
+    return hs, (C, n, m)
+
+
+def _holds_mlstm_rule(got, want, rtol=1e-3):
+    """chip_smoke.py's MLSTM_RTOL rule: h, C, n, m each within rtol and
+    rtol * max|plain|."""
+    (h, state), (h_p, state_p) = got, want
+    return all(
+        torch.allclose(g, w, rtol=rtol, atol=rtol * float(w.abs().max()))
+        for g, w in zip((h, *state), (h_p, *state_p))
+    )
+
+
+@pytest.mark.parametrize("steep", [False, True], ids=["gates", "steep-gates"])
+def test_wgmma_rounding_plan_holds_the_card_rule(steep):
+    """Two bf16 parts of C̃, W and wgt ⊙ v hold the card's rule (rtol 1e-3,
+    atol 1e-3 · max|plain|) at xlstm-1.3b's head dim of 1024."""
+    ins = [t for _, t in _inputs(31 + steep, 1, 256, 1, 1024, "bfloat16", steep=steep)]
+    want = ms.mlstm_scan_plain(*ins, block_q=128)
+    got = _wgmma_route_emulation(*ins, block_q=128)
+    assert _holds_mlstm_rule(got, want)
+
+
+def test_one_bf16_part_breaks_the_card_rule():
+    """A single bf16 part of C̃, W and wgt ⊙ v (8 significant bits) fails
+    the same rule on the same inputs, so the rule sees the second part."""
+    ins = [t for _, t in _inputs(32, 1, 256, 1, 1024, "bfloat16", steep=True)]
+    want = ms.mlstm_scan_plain(*ins, block_q=128)
+    assert not _holds_mlstm_rule(_wgmma_route_emulation(*ins, block_q=128, parts=1), want)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,route",
+    [
+        ("bfloat16", 1024, "wgmma"),
+        ("bfloat16", 64, "wgmma"),
+        ("bfloat16", 192, "wgmma"),
+        ("bfloat16", 896, "wgmma"),
+        ("bfloat16", 96, "mma.sync"),
+        ("bfloat16", 576, "mma.sync"),
+        ("float32", 1024, "mma.sync"),
+    ],
+)
+def test_kernel_route_by_dtype_and_head_dim(dtype, head_dim, route):
+    assert ms.kernel_route(DTYPES[dtype][1], head_dim) == route
