@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check every phase.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (each one fails the run with a non-zero exit on any mismatch):
 
 1. card — the device's name, and ``nvidia-smi``'s name and power limit;
 2. build — compile the CUDA kernels from ``src/repro_torch/csrc``; log
    every kernel's ``ptxas`` registers and spills, and fail unless the
-   flash and mLSTM libraries' SASS holds ``HGMMA`` (their bf16 kernels run
-   on the tensor cores);
+   flash, SSD and mLSTM libraries' SASS holds ``HGMMA`` (their bf16
+   kernels run on the tensor cores);
 3. kernel — the segmented-reduce kernel against its plain PyTorch version
    on the card at 2^24 int64 rows (about 4096 spans, one holding half the
    rows), a (2^20, 8) int64 grid and a float64 sum, then spans of exactly
@@ -42,14 +42,22 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    decode logits against the teacher-forced ``train_logits``;
 9. ssd — the SSD scan kernel against its plain version at zamba2-1.2b's
    prefill shape (B 4, S 1024, 64 heads, P = N = 64) in bf16 and f32, a
-   ragged S 1000, S 1 and a long S 16384; each case's device time, per-call
-   time, bound and the plain version's time (no single PyTorch call computes
-   this function, so there is no library time);
+   ragged S 1000, S 1, a long S 16384 in bf16 and f32, the model's layout
+   (Bm, Cm strided slices of one tensor, an initial state), the reduced
+   P 32, N 16 with chunks of 16 in both dtypes, and rows one element off
+   16 bytes (copied by the wrapper); each case's route (``wgmma`` or
+   ``simt``), device time, per-call time, each pass's device time
+   (``torch.profiler``), the bytes the passes move beside the bound, the
+   plain version's time and, with ``--parent DIR``, the time of that
+   checkout's kernel on this card (``tools/ssd_times.py``); no single
+   PyTorch call computes this function, so there is no library time;
 10. zamba2 — ``python -m repro_torch.serve_lm --arch zamba2-1.2b --full``
    at its published width and depth (38 Mamba-2 layers, d 2048, the shared
    block 6 times): 4 prompts of 1024 tokens, 32 greedy tokens; exactly 38
    SSD, 6 flash and 186 decode launches; every SSD and attention call held
-   to its plain version in the model; the reduced zamba2 end to end in f32
+   to its plain version in the model; the prefill's card time split by
+   ``torch.profiler`` into the SSD kernel's three passes, flash attention,
+   the projections and the rest; the reduced zamba2 end to end in f32
    against the same model under ``ops.plain()`` and against teacher
    forcing, and in bf16 on the 2-layer config of ``tests/test_models.py``;
 11. mlstm — the mLSTM scan kernel against its plain version, h and the
@@ -77,6 +85,7 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -239,34 +248,60 @@ def device_ms(fn, runs: int) -> dict:
     }
 
 
-def device_profile(fn) -> dict:
-    """One call of ``fn()`` under ``torch.profiler``: the device time of its
-    kernels (the regions' annotations left out), the kernel launches the
-    host made, and the five kernels that took longest (ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+#: profiles taken before one that recorded no device kernel is reported as
+#: such: the card's activity records of a whole profile sometimes do not
+#: arrive
+PROFILE_ATTEMPTS = 3
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+
+def device_profile(fn, runs: int = 1) -> dict:
+    """``runs`` calls of ``fn()`` under ``torch.profiler``, after one call it
+    runs but does not record; taken again, up to ``PROFILE_ATTEMPTS`` times,
+    while it records no device kernel.  Per call: the device time of the
+    kernels (the regions' annotations left out), the kernel launches the
+    host made, the five kernels that took longest and each kernel's time
+    (ms); each kernel's mean time a launch over the launches it recorded
+    (ms; a record lost from one call does not shrink it); and the attempts
+    it took."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-    kernels, launches = {}, 0
-    for e in prof.key_averages():
-        if "LaunchKernel" in e.key:
-            launches += e.count
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+        saved = []  # the recorded cycle's events (repeat=1: no cycle after it)
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=runs, repeat=1),
+            on_trace_ready=lambda p: saved.append(p.key_averages()),
+        ) as prof:
+            for _ in range(runs + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if not saved:
+            fail("torch.profiler recorded no cycle")
+        kernels, per_launch, launches = {}, {}, 0
+        for e in saved[-1]:
+            if "LaunchKernel" in e.key:
+                launches += e.count
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / runs
+                per_launch[e.key] = us / 1e3 / e.count
+        if kernels:
+            break
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return {
         "device_ms": sum(kernels.values()),
-        "launches": launches,
+        "launches": launches // runs,
         "top": [[name[:80], ms] for name, ms in top],
         "kernels": kernels,
+        "per_launch": per_launch,
+        "attempts": attempt,
     }
 
 
@@ -1130,20 +1165,64 @@ def serve_phase() -> dict:
 # Phase 9: the SSD scan kernel against its plain version
 # ---------------------------------------------------------------------------
 
-#: SSD cases: (label, B, S, H, P, N, dtype); chunks of 128, as zamba2's
+#: SSD cases: (label, B, S, H, P, N, chunk, dtype, kind).  kind "model"
+#: passes Bm / Cm as slices of one (B, S, H P + 2 N) tensor, as mamba_train
+#: passes its conv output, and an initial state; "offset" puts xh, Bm and Cm
+#: one element into wider buffers, so no row is 16-byte aligned and the
+#: wrapper copies them first
 SSD_CASES = [
-    ("zamba2-1.2b prefill", 4, 1024, 64, 64, 64, torch.bfloat16),
-    ("zamba2-1.2b prefill f32", 4, 1024, 64, 64, 64, torch.float32),
-    ("ragged tail S 1000", 4, 1000, 64, 64, 64, torch.bfloat16),
-    ("one position S 1", 4, 1, 64, 64, 64, torch.bfloat16),
-    ("long context S 16384", 1, 16384, 64, 64, 64, torch.bfloat16),
+    ("zamba2-1.2b prefill", 4, 1024, 64, 64, 64, 128, torch.bfloat16, None),
+    ("zamba2-1.2b prefill f32", 4, 1024, 64, 64, 64, 128, torch.float32, None),
+    ("ragged tail S 1000", 4, 1000, 64, 64, 64, 128, torch.bfloat16, None),
+    ("one position S 1", 4, 1, 64, 64, 64, 128, torch.bfloat16, None),
+    ("long context S 16384", 1, 16384, 64, 64, 64, 128, torch.bfloat16, None),
+    ("long context S 16384 f32", 1, 16384, 64, 64, 64, 128, torch.float32, None),
+    ("model layout: strided B, C and h0", 4, 1024, 64, 64, 64, 128, torch.bfloat16,
+     "model"),
+    ("reduced P 32, N 16, chunk 16", 4, 1024, 8, 32, 16, 16, torch.bfloat16, None),
+    ("reduced P 32, N 16, chunk 16 f32", 4, 1024, 8, 32, 16, 16, torch.float32, None),
+    ("rows one element off 16 bytes", 2, 1000, 64, 64, 64, 128, torch.bfloat16,
+     "offset"),
 ]
-SSD_CHUNK = 128
 #: y: bf16 rtol = atol = 2e-2 (tests/test_kernels.py's bf16 tolerance: y
 #: rounds to bf16); f32 rtol 1e-4, atol 1e-4 * max|y| (sums of up to 128
 #: terms of that size in another order).  h_final (f32 on both sides): rtol
 #: 1e-4, atol 1e-4 * max|h_final|.
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: the kernel's three passes by their CUDA kernels' names
+SSD_PASSES = {
+    "chunk states": r"chunk_states",
+    "state passing": r"state_passing",
+    "chunk outputs": r"chunk_outputs",
+}
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype, kind=None) -> tuple:
+    """xh, la, Bm, Cm and h0 (or None) of one SSD case, drawn on the card
+    with tests/test_kernels.py's scales; la (log decays) f32 and <= 0."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale, dtype=dtype):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    xh = randn(b, s, h, p, scale=0.5)
+    bm, cm = randn(b, s, n, scale=0.5), randn(b, s, n, scale=0.5)
+    la = -randn(b, s, h, scale=0.3, dtype=torch.float32).abs()
+    h0 = None
+    if kind == "model":
+        xbc = randn(b, s, h * p + 2 * n, scale=0.5)
+        bm, cm = xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+        h0 = randn(b, h, p, n, scale=1.0, dtype=torch.float32)
+    elif kind == "offset":
+
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            flat[1:] = t.reshape(-1)
+            return flat[1:].view(t.shape)
+
+        xh, bm, cm = shifted(xh), shifted(bm), shifted(cm)
+    return xh, la, bm, cm, h0
 
 
 def ssd_errors(got, want) -> tuple:
@@ -1172,64 +1251,117 @@ def ssd_work(b, s, h, p, n, chunk, elem) -> tuple:
     return flops, nbytes
 
 
-def ssd_phase(card: str) -> list:
+def ssd_design_bytes(ssd, b, s, h, p, n, chunk, elem, with_h0: bool) -> int:
+    """The bytes the kernel's three passes move as designed (what ``ssd_work``
+    does not count): xh twice; Bm once a block of pass 1 and Bm, Cm once a
+    block of pass 3 (a block takes a group of heads); la twice; each chunk's 64 x 64 f32 state written (pass
+    1), read and written again as the entering state (2: f32, or bf16 hi +
+    lo, the same bytes) and read (3); y, h_final and h0 once."""
+    nc = -(-s // chunk)
+    tiles = b * h * nc * 64 * 64 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = -(-h // ssd.heads_per_block(ssd.HEADS_PER_BLOCK, b * nc, h, sms))
+    inputs = 2 * b * s * h * p * elem + 3 * groups * b * s * n * elem + 2 * b * s * h * 4
+    outputs = b * s * h * p * elem + b * h * p * n * 4 * (2 if with_h0 else 1)
+    return inputs + outputs + 4 * tiles + 2 * b * h * nc * 4
+
+
+def ssd_timings(ssd, xh, la, bm, cm, h0, chunk, runs: int = 20) -> dict:
+    """Device ms of a call with the launches queued, ms a call (CUDA events),
+    the plain version's device ms, and each pass's device ms: its kernel's
+    mean launch over three profiled calls (``torch.profiler``; a pass is one
+    launch a call; "rest" for a wrapper whose kernel is one launch)."""
+
+    def kernel():
+        return ssd.ssd_scan(xh, la, bm, cm, h0, block_q=chunk)
+
+    def plain():
+        return ssd.ssd_scan_plain(xh, la, bm, cm, h0, block_q=chunk)
+
+    k, pl = device_ms(kernel, runs), device_ms(plain, 3)
+    prof = device_profile(kernel, runs=3)
+    return {
+        "ms": k["ms"],
+        "call_ms": cuda_ms(kernel, runs),
+        "plain_ms": pl["ms"],
+        "queued": k["queued"] and pl["queued"],
+        "pass_ms": {k_: v for k_, v in split_kernels(prof["per_launch"], SSD_PASSES).items()
+                    if v > 0},
+        "profile_ms": prof["device_ms"],
+        "profile_attempts": prof["attempts"],
+    }
+
+
+def ssd_parent_times(parent: Path) -> dict:
+    """Case label -> the timings of the checkout at ``parent`` on this card
+    (``tools/ssd_times.py --src parent``, its own process)."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "ssd_times.py"), "--src", str(parent)],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    return {r["case"]: r for r in rows if "case" in r}
+
+
+def ssd_phase(card: str, parent: Path | None = None) -> list:
     from repro_torch.kernels import ssd_scan as ssd
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     bw, _ = memory_rate(card)
+    parent_rows = ssd_parent_times(parent) if parent is not None else {}
     rows = []
-    for label, b, s, h, p, n, dtype in SSD_CASES:
-
-        def randn(*shape, scale, dtype=dtype):
-            x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-            return (x * scale).to(dtype)
-
-        # tests/test_kernels.py's scales; la (log decays) f32 and <= 0
-        xh = randn(b, s, h, p, scale=0.5)
-        bm, cm = randn(b, s, n, scale=0.5), randn(b, s, n, scale=0.5)
-        la = -randn(b, s, h, scale=0.3, dtype=torch.float32).abs()
-        got = ssd.ssd_scan(xh, la, bm, cm, block_q=SSD_CHUNK)
+    for label, b, s, h, p, n, chunk, dtype, kind in SSD_CASES:
+        xh, la, bm, cm, h0 = ssd_inputs(gen, b, s, h, p, n, dtype, kind)
+        got = ssd.ssd_scan(xh, la, bm, cm, h0, block_q=chunk)
         torch.cuda.synchronize()
-        want = ssd.ssd_scan_plain(xh, la, bm, cm, block_q=SSD_CHUNK)
+        want = ssd.ssd_scan_plain(xh, la, bm, cm, h0, block_q=chunk)
         err_y, err_h, holds = ssd_errors(got, want)
         if not holds:
             fail(f"ssd {label}: kernel differs from its plain version "
                  f"(y {err_y}, h_final {err_h})")
-        k = device_ms(lambda: ssd.ssd_scan(xh, la, bm, cm, block_q=SSD_CHUNK), 20)
-        pl = device_ms(lambda: ssd.ssd_scan_plain(xh, la, bm, cm, block_q=SSD_CHUNK), 3)
-        flops, nbytes = ssd_work(b, s, h, p, n, SSD_CHUNK, xh.element_size())
+        max_y = float(want[0].float().abs().max())
+        del got, want
+        t = ssd_timings(ssd, xh, la, bm, cm, h0, chunk)
+        flops, nbytes = ssd_work(b, s, h, p, n, chunk, xh.element_size())
+        design = ssd_design_bytes(ssd, b, s, h, p, n, chunk, xh.element_size(),
+                                  h0 is not None)
         peak, _ = op_rate(card, dtype)
         ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
+        par = parent_rows.get(label, {})
         row = {
             "case": label,
             "shape": [b, s, h, p, n],
             "dtype": str(dtype).replace("torch.", ""),
-            "chunk": SSD_CHUNK,
+            "chunk": chunk,
+            "route": ssd.kernel_route(dtype),
             "max_abs_err": err_y,
             "h_final_max_abs_err": err_h,
-            "max_abs_y": float(want[0].float().abs().max()),
-            "ms": k["ms"],
-            "call_ms": cuda_ms(lambda: ssd.ssd_scan(xh, la, bm, cm, block_q=SSD_CHUNK), 20),
-            "plain_ms": pl["ms"],
-            "queued": k["queued"] and pl["queued"],
+            "max_abs_y": max_y,
+            **t,
+            "parent_ms": par.get("ms"),
+            "parent_call_ms": par.get("call_ms"),
             "library_ms": None,
             "flops": flops,
             "bytes": nbytes,
+            "design_bytes": design,
+            "design_bytes_ms": design / bw * 1e3,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         }
         rows.append(row)
         log(
-            f"ssd {label} {row['shape']} {row['dtype']}: ms={row['ms']:.4f} "
-            f"call_ms={row['call_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
-            f"plain_ms={row['plain_ms']:.3f} queued={row['queued']} "
-            f"max_abs_err y={err_y} h_final={err_h} (max|y| {row['max_abs_y']:.3f}); "
-            "library: none (no single PyTorch call computes this scan)"
+            f"ssd {label} {row['shape']} {row['dtype']} chunk {chunk} route "
+            f"{row['route']}: ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
+            f"passes (ms) {row['pass_ms']} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+            f"the passes move {design / 1e6:.1f} MB, {row['design_bytes_ms']:.4f} ms) "
+            f"plain_ms={row['plain_ms']:.3f} parent_ms={row['parent_ms']} "
+            f"queued={row['queued']} max_abs_err y={err_y} h_final={err_h} "
+            f"(max|y| {max_y:.3f}); library: none (no single PyTorch call "
+            "computes this scan)"
         )
-        del xh, la, bm, cm, got, want
-    torch.cuda.empty_cache()
+        del xh, la, bm, cm, h0
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1246,6 +1378,15 @@ ZAMBA_SMALL_ARGV = [
     "--arch", "zamba2-1.2b", "--batch", "4", "--prompt-len", "64",
     "--new-tokens", "8", "--seed", str(SEED),
 ]
+
+
+#: the zamba2 prefill's kernels by part (regexes over the profiler's names):
+#: the SSD kernel's three passes, the flash kernel, cuBLAS's matrix products
+ZAMBA_PREFILL_GROUPS = {
+    **{f"ssd {name}": pat for name, pat in SSD_PASSES.items()},
+    "flash attention": r"flash_(tc_)?kernel",
+    "projections": r"gemm|gemv|xmma|cutlass|nvjet|sm90_",
+}
 
 
 class ShadowSSD:
@@ -1344,6 +1485,12 @@ def zamba2_phase() -> dict:
     step = device_ms(lambda: model.decode(caches, res.tokens[:, :1], n_prompt), 5)
     pre = device_ms(lambda: model.prefill({"tokens": prompts}, s_max=n_prompt + n_new), 2)
     del caches
+    # the prefill's card time by part (torch.profiler), against the host clock
+    # of the served run: the idle share
+    pre_prof = device_profile(
+        lambda: model.prefill({"tokens": prompts}, s_max=n_prompt + n_new)
+    )
+    prefill_split = split_kernels(pre_prof["kernels"], ZAMBA_PREFILL_GROUPS)
     # reported, not held: the shared block's attention is one-hot under the
     # reference init at this width (see the attention shadow's tie rows)
     full_e2e = end_to_end(model, res, prompts, n_new)
@@ -1400,6 +1547,9 @@ def zamba2_phase() -> dict:
         "decode_step_queued": step["queued"],
         "prefill_device_ms": pre["ms"],
         "prefill_queued": pre["queued"],
+        "prefill_profile": pre_prof,
+        "prefill_split_ms": prefill_split,
+        "prefill_idle_share": 1 - pre_prof["device_ms"] / (res.prefill_s * 1e3),
         "launches": counts,
         "ssd_shadow": ssd_shadow.summary(),
         "attention_shadow": attn_shadow.summary(),
@@ -1422,6 +1572,12 @@ def zamba2_phase() -> dict:
         f"(queued={step['queued']}), prefill {pre['ms']:.3f} ms "
         f"(queued={pre['queued']})"
     )
+    log(
+        f"zamba2 prefill's kernels (torch.profiler): {pre_prof['device_ms']:.3f} ms "
+        f"({pre_prof['launches']} launches; idle share {row['prefill_idle_share']:.3f})"
+        "; by part (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in prefill_split.items())
+    )
+    log(f"zamba2 prefill's top kernels (ms): {pre_prof['top']}")
     log(f"zamba2 ssd shadow (kernel vs plain on every call): {ssd_shadow.summary()}")
     log(f"zamba2 attention shadow: {attn_shadow.summary()}")
     for name, e2e in (("full-size", full_e2e), ("reduced bf16", small_e2e),
@@ -1787,6 +1943,13 @@ def xlstm_phase() -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout of another commit: phase 9 also times its SSD kernel "
+        "on this card (tools/ssd_times.py --src PARENT)",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1828,7 +1991,7 @@ def main() -> None:
                 f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
                 "bytes spill loads")
     hgmma = {}
-    for name in ("flash_attention", "mlstm_scan"):
+    for name in ("flash_attention", "ssd_scan", "mlstm_scan"):
         hgmma[name] = sass_count(_build.library_path(name), "HGMMA")
         if not hgmma[name]:
             fail(f"build: the {name} library's SASS holds no HGMMA: its bf16 "
@@ -1858,7 +2021,7 @@ def main() -> None:
     serve = serve_phase()
 
     # 9. the SSD kernel against its plain version
-    ssd_rows = ssd_phase(kind)
+    ssd_rows = ssd_phase(kind, args.parent)
 
     # 10. serve zamba2-1.2b; its launches counted from here on
     zamba2 = zamba2_phase()

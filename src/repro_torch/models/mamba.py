@@ -6,7 +6,8 @@ whole sequence (training forward and prefill) through
 :func:`repro_torch.kernels.ops.ssd_scan`: the hand-written SSD kernel on the
 card, its plain version on the host.  The reference computes the same
 function with ``_ssd_chunked`` in XLA, which rounds the intra-chunk weights
-to bf16; the kernel keeps them in f32.
+to bf16; the kernel keeps them in f32 (its bf16 route feeds them to the
+tensor cores as two bf16 parts, about 16 bits).
 
 Decode keeps ``(conv, ssm)`` states and is O(1) per token, a few small
 PyTorch ops; :func:`mamba_decode` updates both states in place (the

@@ -535,6 +535,68 @@ def test_ssd_kernel_steep_decays_stay_finite(card):
     torch.testing.assert_close(hf, hf_p, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize(
+    "B,S,H,P,N,Q",
+    [
+        (1, 1000, 12, 64, 64, 128),  # three groups of heads, a ragged last chunk
+        (2, 300, 6, 64, 32, 128),  # a ragged group of heads
+        (2, 200, 8, 32, 16, 16),  # the reduced zamba2's P, N and chunk
+        (1, 4096, 4, 64, 64, 128),  # 32 chunks through the state passing
+        (1, 77, 2, 32, 64, 64),  # a chunk of 64 rows: one warpgroup's rows
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero-state", "h0"])
+def test_ssd_passes_match_plain_version(card, B, S, H, P, N, Q, dtype, with_h0):
+    """The three passes across groups of heads, ragged chunks and groups,
+    P 32 with N 16 and chunks of 16, 32 chunks, with and without h0, on
+    both routes."""
+    rng = np.random.default_rng(S * H + P + N + Q)
+    xh, la, bm, cm = _ssd_inputs(rng, B, S, H, P, N, dtype, card)
+    h0 = _randn(rng, (B, H, P, N), torch.float32, card) if with_h0 else None
+    got = ssd.ssd_scan(xh, la, bm, cm, h0, block_q=Q)
+    torch.cuda.synchronize()
+    _ssd_close(got, ssd.ssd_scan_plain(xh, la, bm, cm, h0, block_q=Q), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_the_models_layout(card, dtype):
+    """Bm / Cm as strided slices of one conv output (row stride H P + 2 N),
+    xh dt-scaled, and h0, on both routes."""
+    rng = np.random.default_rng(15)
+    B, S, H, P, N = 2, 400, 8, 64, 64
+    xbc = _randn(rng, (B, S, H * P + 2 * N), dtype, card) * 0.5
+    xh = xbc[..., : H * P].reshape(B, S, H, P) * 0.7
+    bm, cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    la = -_randn(rng, (B, S, H), torch.float32, card).abs() * 0.3
+    h0 = _randn(rng, (B, H, P, N), torch.float32, card)
+    assert not bm.is_contiguous() and ssd._vector_rows(bm)
+    got = ssd.ssd_scan(xh, la, bm, cm, h0)
+    want = ssd.ssd_scan_plain(xh, la, bm.contiguous(), cm.contiguous(), h0)
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_copies_rows_off_16_bytes(card, dtype):
+    """Inputs whose base lies one element past a 16-byte boundary (a slice
+    that starts one element in, strided or contiguous) are copied first."""
+    rng = np.random.default_rng(16)
+    B, S, H, P, N = 2, 300, 4, 64, 32
+    xh0, la, bm0, cm0 = _ssd_inputs(rng, B, S, H, P, N, dtype, card)
+    wide = torch.cat([torch.zeros(B, S, 1, dtype=dtype, device=card), bm0, cm0], dim=-1)
+    bm, cm = wide[..., 1 : 1 + N], wide[..., 1 + N :]
+    flat = torch.zeros(xh0.numel() + 1, dtype=dtype, device=card)
+    flat[1:] = xh0.reshape(-1)
+    xh = flat[1:].view(xh0.shape)
+    h0 = torch.zeros(B * H * P * N + 1, device=card)[1:].view(B, H, P, N)
+    h0.copy_(_randn(rng, (B, H, P, N), torch.float32, card))
+    assert not any(ssd._vector_rows(t) for t in (xh, bm, cm))
+    assert xh.is_contiguous() and h0.data_ptr() % 16
+    got = ssd.ssd_scan(xh, la, bm, cm, h0)
+    want = ssd.ssd_scan_plain(xh0, la, bm0, cm0, h0.clone())
+    _ssd_close(got, want, dtype)
+
+
 def test_ssd_kernel_raises_on_unsupported_sizes(card):
     rng = np.random.default_rng(14)
     xh, la, bm, cm = _ssd_inputs(rng, 1, 16, 2, 48, 16, torch.float32, card)
