@@ -75,7 +75,24 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    the mLSTM state, W and gate passes, the projections and the rest; the
    full-width model in f32, and the reduced xlstm in bf16 and f32, end to
    end against the same model under ``ops.plain()`` and against teacher
-   forcing.
+   forcing;
+13. apps — amg, laghos and beatnik (``repro_torch.apps``) at the paper's
+   per-rank sizes and rank counts: amg-weak-dane (64–512 ranks, 32×32×16 a
+   rank), laghos-strong (16–128 ranks, 512×512, 2 steps), amg-weak-scale
+   and laghos-strong-scale up to 8192 ranks, beatnik-weak-scale (2048–8192
+   ranks, 32×32, 4 steps); each trace reduced on the card and with
+   ``NumpyBackend`` (byte-equal ``to_json()``; host trace seconds, then
+   warm reductions alternated as in phase 4); ``Frame.from_network`` over
+   every trace with the ring, fat-tree and dragonfly models (CSV byte-equal
+   to ``NumpyBackend``); ``CommPatternProfiler.incremental`` on one point of
+   each app in several updates (byte-equal to the batch profile; the
+   shards pickled, reloaded and merged in another order give the same);
+   the traced + hlo + network frame with the HLO corpus of phase 5, and
+   ``network_vs_traced`` / ``hlo_vs_traced`` / ``table4_metrics`` /
+   ``per_level_report`` equal on the card and on NumPy (the segmented-
+   reduce kernel must be launched in this phase); the single-domain
+   oracles (amg at the 512-rank grid 256×256×128, laghos at 512×512 for 2
+   steps, beatnik at the 2048-rank grid) on the card against the CPU.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -677,6 +694,275 @@ def hlo_phase(rt) -> list:
         fail("hlo corpus frame differs from NumpyBackend")
     log(f"hlo Frame.from_hlo over the corpus: {len(got)} rows equal to NumpyBackend")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: amg, laghos and beatnik; the network layer, streaming, reports
+# ---------------------------------------------------------------------------
+
+#: per-rank sizes of the paper's experiments (``repro/benchpark/spec.py``):
+#: amg 32x32x16 a rank; laghos a fixed 512x512 global grid; beatnik 32x32 a
+#: rank.  Points: the Dane decompositions (64-512 ranks; laghos-strong's
+#: 16-128) and the scale points up to 8192 ranks.
+APP_PARAMS = {
+    "amg": dict(nx=32, ny=32, nz=16),
+    "laghos": dict(nx=512, ny=512, n_steps=2),
+    "beatnik": dict(nx=32, ny=32, n_steps=4),
+}
+APP_POINTS = {
+    "amg": [(4, 4, 4), (8, 4, 4), (8, 8, 4), (8, 8, 8), (16, 16, 8), (32, 16, 8),
+            (32, 32, 8)],
+    "laghos": [(4, 4, 1), (8, 4, 1), (8, 8, 1), (16, 8, 1), (64, 32, 1), (64, 64, 1),
+               (128, 64, 1)],
+    "beatnik": [(32, 64, 1), (64, 64, 1), (128, 64, 1)],
+}
+#: the point of each app that phase 13 also profiles incrementally
+STREAM_POINTS = {"amg": (8, 8, 8), "laghos": (16, 8, 1), "beatnik": (32, 64, 1)}
+#: updates the incremental profiler takes over one trace
+STREAM_UPDATES = 6
+ORACLE_TOL = dict(rtol=5e-5, atol=5e-6)
+
+
+def _app_config(app: str, shape: tuple):
+    from repro_torch.apps import amg, beatnik, laghos
+    from repro_torch.apps.stencil import Decomp3D
+
+    cls = {"amg": amg.AMGConfig, "laghos": laghos.LaghosConfig,
+           "beatnik": beatnik.BeatnikConfig}[app]
+    return cls(decomp=Decomp3D(*shape), **APP_PARAMS[app])
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def app_profiles(card) -> tuple:
+    """(a) Every app point traced once; the trace reduced on the card and on
+    NumPy.  Returns (rows, {(app, shape): (profile, recorder)})."""
+    from repro_torch.apps import amg, beatnik, laghos
+    from repro_torch.core.backend import NumpyBackend
+    from repro_torch.core.profiler import CommPatternProfiler, trace_observer
+
+    modules = {"amg": amg, "laghos": laghos, "beatnik": beatnik}
+    rows, traces = [], {}
+    for app, shapes in APP_POINTS.items():
+        for shape in shapes:
+            cfg = _app_config(app, shape)
+            n = cfg.decomp.n_ranks
+            row = {"app": app, "n_ranks": n, "decomp": list(shape), **APP_PARAMS[app]}
+            held = {}
+            t0 = time.perf_counter()
+
+            def observe(rec, *, name, replication, meta, row=row, held=held, t0=t0):
+                row["trace_s"] = time.perf_counter() - t0
+                t = time.perf_counter()
+                rec.buffer.structs.reduction_view()
+                row["view_s"] = time.perf_counter() - t
+                row["rows"], row["structs"] = rec.buffer.n_rows, rec.buffer.structs.n_structs
+
+                def reduce(be):
+                    return _timed(lambda: CommPatternProfiler.from_recorder(
+                        rec, name=name, replication=replication, meta=meta, backend=be))
+
+                prof, row["card_reduce_s"] = reduce(card)
+                ref, row["numpy_reduce_s"] = reduce(NumpyBackend())
+                if prof.to_json() != ref.to_json():
+                    fail(f"{app} {n} ranks: card profile differs from NumpyBackend")
+                card_s, numpy_s = [], []
+                for _ in range(WARM_REDUCTIONS):
+                    card_s.append(reduce(card)[1])
+                    numpy_s.append(reduce(NumpyBackend())[1])
+                row["card_warm_s"] = statistics.median(card_s)
+                row["numpy_warm_s"] = statistics.median(numpy_s)
+                held["rec"] = rec
+                return prof
+
+            with trace_observer(observe):
+                prof = modules[app].profile(cfg, name=f"{app}-{n:06d}")
+            traces[(app, shape)] = (prof, held["rec"])
+            rows.append(row)
+            log(
+                f"apps {app} {n} ranks {shape}: trace_s={row['trace_s']:.3f} "
+                f"view_s={row['view_s']:.4f} rows={row['rows']} "
+                f"structs={row['structs']} card_reduce_s={row['card_reduce_s']:.4f} "
+                f"numpy_reduce_s={row['numpy_reduce_s']:.4f} "
+                f"card_warm_s={row['card_warm_s']:.4f} "
+                f"numpy_warm_s={row['numpy_warm_s']:.4f}"
+            )
+    return rows, traces
+
+
+def network_rows(traces: dict) -> list:
+    """(b) Modeled-network rows of every trace on three fabrics: the card's
+    frame (the default backend) against NumpyBackend's, CSV byte for byte."""
+    from repro_torch.core.backend import NumpyBackend
+    from repro_torch.core.network import FABRICS
+    from repro_torch.core.thicket import Frame
+
+    rows = []
+    for (app, shape), (prof, rec) in traces.items():
+        entries = [(prof.name, prof.n_ranks, rec, fab) for fab in FABRICS.values()]
+        got, card_s = _timed(lambda: Frame.from_network(entries))
+        want, numpy_s = _timed(lambda: Frame.from_network(entries, NumpyBackend()))
+        if got.to_csv() != want.to_csv():
+            fail(f"network {app} {prof.n_ranks} ranks: card rows differ from NumPy")
+        rows.append({"app": app, "n_ranks": prof.n_ranks, "rows": len(got),
+                     "card_s": card_s, "numpy_s": numpy_s})
+        log(f"network {app} {prof.n_ranks} ranks: {len(got)} rows on "
+            f"{len(FABRICS)} fabrics, card_s={card_s:.4f} numpy_s={numpy_s:.4f}")
+    return rows
+
+
+def streaming_rows(traces: dict) -> list:
+    """(c) Incremental profiles on the card, equal to the batch profile; the
+    shards pickled, reloaded and merged in another order give the same."""
+    import pickle
+
+    from repro_torch.core.profiler import CommPatternProfiler
+    from repro_torch.core.streaming import merge_tree
+
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for app, shape in STREAM_POINTS.items():
+        prof, rec = traces[(app, shape)]
+        n_rows = rec.buffer.n_rows
+        cuts = np.linspace(0, n_rows, STREAM_UPDATES).astype(int)
+        sp = CommPatternProfiler.incremental(rec)  # the default: the card
+
+        def stream():
+            return [sp.update(int(c)) for c in cuts] + [sp.update()]
+
+        shards, card_s = _timed(stream)
+        live = sp.profile(name=prof.name, meta=prof.meta)
+        if live.to_json() != prof.to_json():
+            fail(f"streaming {app} {prof.n_ranks} ranks: differs from the batch profile")
+        for shard in shards:
+            for rs in shard.regions.values():
+                arrays = (rs.sends, rs.part, rs.dest_codes, rs.src_codes, rs.cbytes)
+                if not all(isinstance(a, np.ndarray) for a in arrays):
+                    fail(f"streaming {app}: a shard holds something other than NumPy")
+        blobs = [pickle.dumps(s) for s in shards]
+        order = rng.permutation(len(blobs))
+        merged = merge_tree(pickle.loads(blobs[i]) for i in order)
+        if merged.finalize(name=prof.name, meta=prof.meta).to_json() != prof.to_json():
+            fail(f"streaming {app}: reloaded shards merged out of order differ")
+        rows.append({"app": app, "n_ranks": prof.n_ranks, "trace_rows": n_rows,
+                     "updates": len(shards), "card_s": card_s,
+                     "shard_bytes": sum(len(b) for b in blobs)})
+        log(f"streaming {app} {prof.n_ranks} ranks: {len(shards)} updates over "
+            f"{n_rows} rows, card_s={card_s:.4f}, {sum(len(b) for b in blobs)} "
+            "pickled shard bytes; equal to the batch profile in any merge order")
+    return rows
+
+
+def report_rows(rt, traces: dict) -> dict:
+    """(d) The traced + hlo + network frame and the reports, on the card and
+    on NumPy; the segmented-reduce kernel runs the HLO layer's reductions."""
+    from repro_torch.core import reports
+    from repro_torch.core.backend import NumpyBackend
+    from repro_torch.core.hlo import scan_hlo_collectives
+    from repro_torch.core.network import FABRICS
+    from repro_torch.core.thicket import Frame
+
+    hlo = []
+    for path in sorted((ROOT / "tests" / "fixtures" / "hlo").glob("*.txt")):
+        expected = json.loads(path.with_name(f"{path.stem}.expected.json").read_text())
+        hlo.append((path.stem, 8, scan_hlo_collectives(
+            path.read_text(), expected["total_devices"], with_loops=True)))
+    profiles = [prof for prof, _ in traces.values()]
+    network = [(prof.name, prof.n_ranks, rec, fab)
+               for prof, rec in traces.values() for fab in FABRICS.values()]
+    amg = [prof for (app, _), (prof, _) in traces.items() if app == "amg"]
+    before = rt.launch_count()
+
+    def render(be):
+        frame = Frame.concat([Frame.from_profiles(profiles),
+                              Frame.from_hlo(hlo, backend=be),
+                              Frame.from_network(network, backend=be)])
+        return {
+            "frame": frame.to_csv(),
+            "network_vs_traced": reports.network_vs_traced(
+                profiles, network, hlo_entries=hlo, backend=be),
+            "hlo_vs_traced": reports.hlo_vs_traced(profiles, hlo, backend=be),
+            "table4_metrics": reports.table4_metrics(profiles, backend=be),
+            "per_level_report": reports.per_level_report(amg, backend=be),
+        }
+
+    got, card_s = _timed(lambda: render(None))  # the default: the card
+    launches = rt.launch_count() - before
+    want, numpy_s = _timed(lambda: render(NumpyBackend()))
+    for key in want:
+        if got[key] != want[key]:
+            fail(f"reports: {key} differs between the card and NumPy")
+    if launches <= 0:
+        fail("the segmented-reduce kernel was not launched by the three-layer frame")
+    n_frame = len(got["frame"].splitlines()) - 1
+    log(f"reports: three-layer frame of {n_frame} rows and 4 reports equal on the "
+        f"card and NumPy; card_s={card_s:.3f} numpy_s={numpy_s:.3f} "
+        f"segment_reduce launches={launches}")
+    (OUT_DIR / "apps_reports.md").write_text(
+        "\n\n".join(got[k] for k in got if k != "frame"))
+    return {"frame_rows": n_frame, "card_s": card_s, "numpy_s": numpy_s,
+            "launches": launches}
+
+
+def oracle_rows() -> list:
+    """(e) The single-domain oracles on the card against the CPU."""
+    from repro_torch.apps import amg, beatnik, laghos
+
+    def amg_run(device):
+        cfg = _app_config("amg", (8, 8, 8))
+        run, _ = amg.reference_solve(cfg)
+        u, rn = run(amg.make_rhs(cfg, device=device))
+        return [u, rn]
+
+    def laghos_run(device):
+        cfg = _app_config("laghos", (16, 8, 1))
+        state, dts = laghos.reference_steps(cfg)(laghos.make_state(cfg, device=device))
+        return [*state.values(), dts]
+
+    def beatnik_run(device):
+        cfg = _app_config("beatnik", (32, 64, 1))
+        (z, w), nrms = beatnik.reference_steps(cfg)(beatnik.make_state(cfg, device=device))
+        return [z, w, nrms]
+
+    rows = []
+    for app, fn in (("amg", amg_run), ("laghos", laghos_run), ("beatnik", beatnik_run)):
+        t = time.perf_counter()
+        want = fn("cpu")
+        cpu_s = time.perf_counter() - t
+        got, card_s = _timed(lambda: fn(None))  # the default device: the card
+        if any(g.device.type != "cuda" for g in got):
+            fail(f"oracle {app}: did not run on the card")
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            if not torch.isfinite(w).all() or not torch.allclose(g.cpu(), w, **ORACLE_TOL):
+                fail(f"oracle {app}: card differs from the CPU (max {err})")
+        shape = list(want[0].shape)
+        rows.append({"app": app, "shape": shape, "card_s": card_s, "cpu_s": cpu_s,
+                     "max_abs_err": err})
+        log(f"oracle {app} {shape}: card_s={card_s:.3f} cpu_s={cpu_s:.3f} "
+            f"max_abs_err={err}")
+    return rows
+
+
+def apps_phase(rt) -> dict:
+    from repro_torch.core.backend import TorchBackend, resolve_backend
+
+    card = resolve_backend(None)
+    if not (isinstance(card, TorchBackend) and card.device.type == "cuda"):
+        fail(f"the default backend is {card!r}, not torch on the card")
+    rows, traces = app_profiles(card)
+    network = network_rows(traces)
+    streaming = streaming_rows(traces)
+    reports_row = report_rows(rt, traces)
+    oracles = oracle_rows()
+    return {"profiles": rows, "network": network, "streaming": streaming,
+            "reports": reports_row, "oracles": oracles}
 
 
 # ---------------------------------------------------------------------------
@@ -2032,6 +2318,13 @@ def main() -> None:
     # 12. serve xlstm-1.3b; its launches counted from here on
     xlstm = xlstm_phase()
 
+    # 13. amg, laghos, beatnik; network rows, streaming, the three-layer
+    # reports; the segmented reduce's launches counted from here on
+    seg.reset_launch_count()
+    apps = apps_phase(seg)
+    apps["segment_reduce_launches"] = seg.launch_count()
+    log(f"apps path kernel launches: segment_reduce={apps['segment_reduce_launches']}")
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -2089,6 +2382,7 @@ def main() -> None:
         "zamba2": zamba2,
         "mlstm": mlstm_rows,
         "xlstm": xlstm,
+        "apps": apps,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

@@ -30,10 +30,16 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from repro_torch.apps.stencil import AXIS_NAMES, Decomp3D, bwd_perm, fwd_perm
+from repro_torch.apps.stencil import (
+    AXIS_NAMES,
+    Decomp3D,
+    bwd_perm,
+    card_device,
+    fwd_perm,
+)
 from repro_torch.core import collectives as coll
 from repro_torch.core import compat
-from repro_torch.core.backend import BackendUnavailable, TorchBackend
+from repro_torch.core.backend import TorchBackend
 from repro_torch.core.profiler import CommProfile, profile_traced
 from repro_torch.core.regions import comm_region, tag_structure
 
@@ -235,12 +241,7 @@ def make_source(cfg: KripkeConfig, *, global_shape: bool = False, device=None):
     asked for and there is none.  :func:`reference_sweep` runs on the
     device of the source it is given.
     """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise BackendUnavailable(
-            "make_source builds on a CUDA device and none is available; "
-            "pass device='cpu' to build it on the host"
-        )
+    device = card_device(device, "make_source")
     nds, ngs, d, g = cfg.angular
     if global_shape:
         nx = cfg.nx * cfg.decomp.px

@@ -16,9 +16,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import collectives as coll
 from repro_torch.core import compat
+from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.topology import topology
 
 AXIS_NAMES = ("x", "y", "z")
@@ -98,6 +100,50 @@ def halo_exchange(
         ghost_hi = coll.ppermute(lo_face, axis, bwd_perm(n, periodic))
         out[dim] = (ghost_lo, ghost_hi)
     return out
+
+
+def pad_with_halo(
+    u: torch.Tensor, ghosts: dict, *, width: int = 1, dims: tuple = (0, 1, 2)
+) -> torch.Tensor:
+    """Concatenate exchanged ghosts onto u → a tensor padded by ``width`` on
+    the exchanged dims (ghosts of ghost corners are zero; adequate for
+    7-point stencils, which never read corners)."""
+    for dim in dims:
+        lo, hi = ghosts[dim]
+
+        # lo/hi were sliced from the *unpadded* tensor; pad their other dims
+        # to match the progressively padded u (F.pad lists the last dim first)
+        def fit(g):
+            pads = []
+            for d in reversed(range(u.dim())):
+                diff = 0 if d == dim else u.shape[d] - g.shape[d]
+                pads += [diff // 2, diff - diff // 2]
+            return F.pad(g, pads)
+
+        u = torch.cat([fit(lo), u, fit(hi)], dim=dim)
+    return u
+
+
+def zero_pad(u: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """``u`` padded by ``width`` zeros on every dim: the single-domain
+    oracles' homogeneous Dirichlet ghosts."""
+    return F.pad(u, [width] * (2 * u.dim()))
+
+
+def card_device(device, what: str) -> torch.device:
+    """``device``, or the CUDA card when it is None.
+
+    Raises ``BackendUnavailable`` when the card is asked for and there is
+    none: the apps' states and oracles never fall back to the host in
+    silence (the CPU tests pass ``device="cpu"``).
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise BackendUnavailable(
+            f"{what} runs on a CUDA device and none is available; "
+            "pass device='cpu' to run it on the host"
+        )
+    return device
 
 
 def laplacian_7pt(u_padded: torch.Tensor, h2: float = 1.0) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Core: communication-region profiling on PyTorch.
 
-Public API (the modules ported so far):
+Public API (every module of the JAX package's core except ``hlo_cost``):
   compat                     — SPMD shim: named mesh axes, trace-only
                                shard_map over meta tensors, axis_index /
                                axis_size
@@ -12,7 +12,14 @@ Public API (the modules ported so far):
                                tensors)
   scan_hlo_collectives       — compiled-HLO communication extraction into a
                                columnar HloCollectiveBuffer
-  Frame                      — Thicket-style analysis (traced + hlo rows)
+  Frame                      — Thicket-style analysis (traced + hlo +
+                               network rows)
+  NetworkModeledProfiler     — modeled fabric costs per region (ring /
+                               fat-tree / dragonfly), peer heatmaps
+  reports                    — the paper's tables and figures as markdown
+  StreamingProfiler / ProfileSummary / merge_tree — incremental
+                               profiling into mergeable shards
+                               (CommPatternProfiler.incremental)
   resolve_backend / use_backend — reduction-backend selection (numpy |
                                torch; default torch on the CUDA card,
                                byte-identical profiles across backends)
@@ -65,3 +72,22 @@ from repro_torch.core.hlo import (  # noqa: F401
 )
 from repro_torch.core import collectives  # noqa: F401
 from repro_torch.core.thicket import Frame, add_rate_metrics  # noqa: F401
+from repro_torch.core.network import (  # noqa: F401
+    DRAGONFLY,
+    FABRICS,
+    FAT_TREE,
+    RING,
+    FabricModel,
+    NetworkModeledProfiler,
+    ascii_heatmap,
+    heatmap_csv,
+    peer_heatmap,
+    resolve_fabric,
+)
+from repro_torch.core import reports  # noqa: F401
+from repro_torch.core.streaming import (  # noqa: F401
+    ProfileSummary,
+    RegionSummary,
+    StreamingProfiler,
+    merge_tree,
+)

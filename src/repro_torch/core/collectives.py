@@ -120,7 +120,7 @@ def _meta_result(x, shape_fn=tuple):
         if leaf.device.type != "meta":
             raise NotImplementedError(
                 "instrumented collectives execute over torch.distributed in a "
-                "later slice (ROADMAP queue 1, step 4); trace with meta tensors"
+                "later slice (ROADMAP queue 1, item 6); trace with meta tensors"
             )
         return torch.empty(shape_fn(leaf.shape), dtype=leaf.dtype, device="meta")
 

@@ -117,7 +117,7 @@ def _local(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     if x.device.type != "meta":
         raise NotImplementedError(
             "shard_map runs real tensors across ranks over torch.distributed, "
-            "which is not ported yet (ROADMAP queue 1, step 4); trace with "
+            "which is not ported yet (ROADMAP queue 1, item 6); trace with "
             "meta tensors"
         )
     shape = []
@@ -137,22 +137,30 @@ def _global(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
 
 
 def _map(specs, values, fn):
+    """``fn(leaf, spec)`` over a tree of values (tensor, tuple, list or
+    dict) matched by a tree of specs of the same structure."""
     if isinstance(specs, PartitionSpec):
         return fn(values, specs)
-    return type(values)(fn(v, s) for v, s in zip(values, specs))
+    if isinstance(values, dict):
+        return {k: _map(specs[k], v, fn) for k, v in values.items()}
+    return type(values)(_map(s, v, fn) for v, s in zip(values, specs))
 
 
 def shard_map(fn, *, mesh: Mesh, in_specs, out_specs):
     """Trace-only ``shard_map``: run ``fn`` once on one rank's meta shards.
 
-    ``in_specs`` / ``out_specs`` are a :class:`PartitionSpec` each (or a
-    tuple of them for several arguments / outputs).  The returned callable
-    takes global meta tensors and returns global meta tensors.
+    ``in_specs`` / ``out_specs`` are a :class:`PartitionSpec` each, or a
+    tuple with one entry per argument / output, where an entry may itself
+    be a tuple or dict of specs matching a tuple or dict argument.  The
+    returned callable takes global meta tensors and returns global meta
+    tensors.
     """
 
     def run(*args):
         specs = (in_specs,) if isinstance(in_specs, PartitionSpec) else in_specs
-        local = [_local(a, s, mesh) for a, s in zip(args, specs)]
+        local = [
+            _map(s, a, lambda v, sp: _local(v, sp, mesh)) for a, s in zip(args, specs)
+        ]
         with axis_env(mesh):
             out = fn(*local)
         return _map(out_specs, out, lambda v, s: _global(v, s, mesh))

@@ -45,10 +45,17 @@ Host NumPy keeps the O(rows) scatters/orderings; the backend owns the
 O(G x S x Rmax) weight-grid matmuls and the peer-set dedup that dominate at
 high rank counts.
 
-:func:`trace_observer` installs a thread-local hook that lets a harness
-intercept :func:`profile_traced`'s recorder (e.g. to reduce one trace with
-two backends and time each) without any app-code change.  The JAX
-package's incremental (streaming) mode is not ported yet.
+Live monitoring (see :mod:`repro_torch.core.streaming`): batch
+``from_recorder`` has an incremental twin — :meth:`CommPatternProfiler.incremental`
+returns a ``StreamingProfiler`` holding a ``(row, multiplicity)``
+watermark into the recorder's TraceBuffer; each ``update()`` re-reduces
+only the rows recorded since the watermark (through the same backend
+kernels) and yields the delta as an associative/commutative mergeable
+``ProfileSummary`` shard, which merges in any order into a profile
+byte-identical to the batch reduction.  :func:`trace_observer` installs a
+thread-local hook that lets a harness intercept :func:`profile_traced`'s
+recorder (e.g. to reduce one trace with two backends and time each, or to
+profile it incrementally) without any app-code change.
 """
 
 from __future__ import annotations
@@ -208,6 +215,27 @@ class CommPatternProfiler:
     default from ``REPRO_BACKEND``; NumPy arrays at every boundary, int64
     paths exact, so profiles are bit-identical across backends).
     """
+
+    @staticmethod
+    def incremental(
+        rec: RegionRecorder,
+        *,
+        backend: Union[ReduceBackend, str, None] = None,
+    ):
+        """Incremental mode: a ``StreamingProfiler`` over ``rec``.
+
+        Holds a ``(row, multiplicity)`` watermark into the recorder's
+        TraceBuffer; each ``update()`` reduces only the newly recorded
+        rows (same backend kernels as the batch path; the default backend
+        is torch on the CUDA card) and returns the delta as a mergeable
+        ``ProfileSummary`` shard.  ``profile()`` collapses the running
+        summary into a CommProfile byte-identical to :meth:`from_recorder`
+        over the same events.  See :mod:`repro_torch.core.streaming` for
+        the merge contract.
+        """
+        from repro_torch.core.streaming import StreamingProfiler
+
+        return StreamingProfiler(rec, backend=backend)
 
     @staticmethod
     def from_recorder(
@@ -645,8 +673,9 @@ def trace_observer(cb: Callable):
     recorder to ``cb(rec, name=..., replication=..., meta=...)`` *instead
     of* reducing it through the batch path.  The callback may return a
     :class:`CommProfile` (used as the result — e.g. one trace reduced by
-    two backends, each timed) or ``None`` to fall through to the batch
-    ``from_recorder`` reduction.  Hooks nest; the innermost wins.
+    two backends, each timed, or built via
+    :meth:`CommPatternProfiler.incremental`) or ``None`` to fall through to
+    the batch ``from_recorder`` reduction.  Hooks nest; the innermost wins.
     """
     prev = getattr(_observer_tls, "cb", None)
     _observer_tls.cb = cb

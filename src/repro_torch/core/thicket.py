@@ -32,20 +32,22 @@ Column order is first-appearance order, matching the legacy behavior.
 cross-run scaling studies; columns are unioned and dtypes re-unified, so
 sweeps with disjoint meta/region columns concatenate without loss.
 
-Frames are **layered**: :meth:`Frame.from_profiles` rows carry
+Frames are **three-layer**: :meth:`Frame.from_profiles` rows carry
 ``layer="traced"`` (application-layer traffic from the instrumented
-collectives) and :meth:`Frame.from_hlo` rows carry ``layer="hlo"``
-(compiler-inserted traffic from the columnar HLO analyzer), joined per
-(profile, n_ranks, region) — the ``commr::`` scopes give every layer one
-region namespace.  The JAX package's third, modeled-network layer
-(``from_network``) is not ported yet.  ``group_by`` / ``agg`` run
-vectorized: one factorize pass over composite key codes, no per-row dict
-materialization.  The factorize dispatches through the same
+collectives), :meth:`Frame.from_hlo` rows carry ``layer="hlo"``
+(compiler-inserted traffic from the columnar HLO analyzer), and
+:meth:`Frame.from_network` rows carry ``layer="network"`` (modeled fabric
+costs — wire time, hops, link congestion — from
+:mod:`repro_torch.core.network`), joined per (profile, n_ranks, region) —
+the ``commr::`` scopes give every layer one region namespace
+(``reports.hlo_vs_traced`` / ``reports.network_vs_traced``).  ``group_by``
+/ ``agg`` run vectorized: one factorize pass over composite key codes, no
+per-row dict materialization.  The factorize dispatches through the same
 :class:`~repro_torch.core.backend.ReduceBackend` as the profilers
-(``backend=`` keyword on ``from_hlo`` / ``group_by`` / ``agg`` /
-``pivot``, default from ``REPRO_BACKEND``) with identical grouping on
-every backend; object-dtype and masked key columns always factorize
-host-side.
+(``backend=`` keyword on ``from_hlo`` / ``from_network`` / ``group_by`` /
+``agg`` / ``pivot``, default from ``REPRO_BACKEND``: torch on the CUDA
+card) with identical grouping on every backend; object-dtype and masked
+key columns always factorize host-side.
 
 Derived metrics mirror the paper's §V analysis:
   bandwidth   bytes sent per second per process (Fig. 5/6 left axes)
@@ -221,6 +223,39 @@ class Frame:
                     n_ranks=n_ranks,
                     meta=rest[0] if rest else None,
                     backend=backend,
+                )
+            )
+        return Frame(rows)
+
+    @staticmethod
+    def from_network(entries, backend=None) -> "Frame":
+        """Modeled-fabric rows: one per (profile, region), ``layer="network"``.
+
+        ``entries`` is an iterable of ``(profile_name, n_ranks, recorder,
+        fabric)`` or ``(profile_name, n_ranks, recorder, fabric, meta)``
+        tuples, where ``recorder`` is a finished
+        :class:`~repro_torch.core.regions.RegionRecorder` (or its trace
+        buffer) and ``fabric`` a
+        :class:`~repro_torch.core.network.FabricModel` or fabric name.  Rows
+        share the join keys of :meth:`from_profiles`, so ``Frame.concat``
+        stitches the third layer beside traced/hlo.  ``backend`` picks the
+        reduction backend of the (region × struct) @ (struct × link)
+        products (name/instance; default resolved from ``REPRO_BACKEND``).
+        """
+        from repro_torch.core.network import NetworkModeledProfiler
+
+        be = resolve_backend(backend)
+        rows = []
+        for entry in entries:
+            name, n_ranks, rec, fabric, *rest = entry
+            rows.extend(
+                NetworkModeledProfiler.region_rows(
+                    rec,
+                    fabric=fabric,
+                    name=name,
+                    n_ranks=n_ranks,
+                    meta=rest[0] if rest else None,
+                    backend=be,
                 )
             )
         return Frame(rows)

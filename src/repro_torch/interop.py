@@ -12,7 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.apps.amg import AMGConfig
+from repro_torch.apps.beatnik import BeatnikConfig
 from repro_torch.apps.kripke import KripkeConfig
+from repro_torch.apps.laghos import LaghosConfig
 from repro_torch.apps.stencil import Decomp3D
 from repro_torch.configs import base
 from repro_torch.core.regions import RegionEvent, RegionRecorder
@@ -49,14 +52,33 @@ def recorder_from_event_dicts(events, instances) -> RegionRecorder:
     return rec
 
 
-def kripke_config_from_dict(d: dict) -> KripkeConfig:
-    """A :class:`KripkeConfig` from ``dataclasses.asdict`` of the reference's."""
+def _app_config(cls, d: dict, **fix):
     d = dict(d)
     decomp = d.pop("decomp")
     if not isinstance(decomp, Decomp3D):
         decomp = Decomp3D(**decomp)
-    d["w"] = tuple(d["w"])
-    return KripkeConfig(decomp=decomp, **d)
+    d.update({k: f(d[k]) for k, f in fix.items()})
+    return cls(decomp=decomp, **d)
+
+
+def kripke_config_from_dict(d: dict) -> KripkeConfig:
+    """A :class:`KripkeConfig` from ``dataclasses.asdict`` of the reference's."""
+    return _app_config(KripkeConfig, d, w=tuple)
+
+
+def amg_config_from_dict(d: dict) -> AMGConfig:
+    """An :class:`AMGConfig` from ``dataclasses.asdict`` of the reference's."""
+    return _app_config(AMGConfig, d)
+
+
+def laghos_config_from_dict(d: dict) -> LaghosConfig:
+    """A :class:`LaghosConfig` from ``dataclasses.asdict`` of the reference's."""
+    return _app_config(LaghosConfig, d)
+
+
+def beatnik_config_from_dict(d: dict) -> BeatnikConfig:
+    """A :class:`BeatnikConfig` from ``dataclasses.asdict`` of the reference's."""
+    return _app_config(BeatnikConfig, d)
 
 
 def model_config_from_dict(d: dict):

@@ -741,3 +741,76 @@ def test_mlstm_wgmma_route_takes_strided_inputs(card, D):
         q.contiguous(), k.contiguous(), v.contiguous(), lf, li.contiguous(), block_q=64
     )
     _mlstm_close(got, want)
+
+
+_APP_CASES = {
+    "amg": ((4, 4, 2), dict(nx=8, ny=8, nz=8)),
+    "laghos": ((4, 4, 1), dict(nx=64, ny=64, n_steps=2)),
+    "beatnik": ((4, 2, 1), dict(nx=8, ny=8, far_subsample=8, n_steps=4)),
+}
+
+
+@pytest.mark.parametrize("app", list(_APP_CASES))
+def test_app_profiles_network_rows_and_streams_on_the_card(card, app):
+    """An app's profile, its modeled-network rows and its incremental
+    profile reduced on the card equal NumpyBackend's, byte for byte."""
+    from repro_torch.apps import amg, beatnik, laghos
+    from repro_torch.apps.stencil import Decomp3D
+    from repro_torch.core.backend import NumpyBackend
+    from repro_torch.core.network import FABRICS
+    from repro_torch.core.profiler import CommPatternProfiler, trace_observer
+    from repro_torch.core.thicket import Frame
+
+    mod = {"amg": amg, "laghos": laghos, "beatnik": beatnik}[app]
+    cls = {"amg": "AMGConfig", "laghos": "LaghosConfig", "beatnik": "BeatnikConfig"}[app]
+    shape, params = _APP_CASES[app]
+    cfg = getattr(mod, cls)(decomp=Decomp3D(*shape), **params)
+    held = {}
+
+    def keep(rec, **kw):
+        held["rec"] = rec
+        return None
+
+    with trace_observer(keep):
+        prof = mod.profile(cfg)  # the default backend: torch on the card
+    rec = held["rec"]
+    want = CommPatternProfiler.from_recorder(
+        rec, name=prof.name, meta=prof.meta, backend=NumpyBackend()
+    )
+    assert prof.to_json() == want.to_json()
+    entries = [(prof.name, prof.n_ranks, rec, fab) for fab in FABRICS]
+    assert (
+        Frame.from_network(entries).to_csv()
+        == Frame.from_network(entries, backend=NumpyBackend()).to_csv()
+    )
+    sp = CommPatternProfiler.incremental(rec)
+    for cut in np.linspace(0, rec.buffer.n_rows, 4).astype(int):
+        sp.update(int(cut))
+    assert sp.profile(name=prof.name, meta=prof.meta).to_json() == want.to_json()
+
+
+@pytest.mark.parametrize("app", list(_APP_CASES))
+def test_app_oracles_on_the_card_match_the_cpu(card, app):
+    from repro_torch.apps import amg, beatnik, laghos
+    from repro_torch.apps.stencil import Decomp3D
+
+    shape, params = _APP_CASES[app]
+    if app == "amg":
+        cfg = amg.AMGConfig(decomp=Decomp3D(*shape), **params)
+        run = amg.reference_solve(cfg)[0]
+        got, want = run(amg.make_rhs(cfg)), run(amg.make_rhs(cfg, device="cpu"))
+    elif app == "laghos":
+        cfg = laghos.LaghosConfig(decomp=Decomp3D(*shape), **params)
+        run = laghos.reference_steps(cfg)
+        (s, d), (s0, d0) = run(laghos.make_state(cfg)), run(laghos.make_state(cfg, device="cpu"))
+        got, want = [*s.values(), d], [*s0.values(), d0]
+    else:
+        cfg = beatnik.BeatnikConfig(decomp=Decomp3D(*shape), **params)
+        run = beatnik.reference_steps(cfg)
+        (zw, n), (zw0, n0) = run(beatnik.make_state(cfg)), run(
+            beatnik.make_state(cfg, device="cpu")
+        )
+        got, want = [*zw, n], [*zw0, n0]
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=5e-5, atol=5e-6)
