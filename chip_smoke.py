@@ -92,7 +92,22 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    ``per_level_report`` equal on the card and on NumPy (the segmented-
    reduce kernel must be launched in this phase); the single-domain
    oracles (amg at the 512-rank grid 256×256×128, laghos at 512×512 for 2
-   steps, beatnik at the 2048-rank grid) on the card against the CPU.
+   steps, beatnik at the 2048-rank grid) on the card against the CPU;
+14. sweeps — the Benchpark sweeps and the paper's figures
+   (``repro_torch.figures.run``) on the card: (a) the smoke in its own
+   process (``--smoke --backend torch``: kripke-weak-dane, 64–512 ranks,
+   on a process pool filling a fresh cache, a serial pass served wholly
+   from it, an uncached NumPy pass, all byte-equal; the four scale
+   experiments up to 8192 ranks; fig 8's artifacts; its peak RSS); a pool
+   worker's cold start (start, imports, CUDA context) against its first
+   point, and kripke-weak-dane's points one by one on the serial executor
+   against the whole sweep on a fresh pool; (b) the live smoke (three
+   paper experiments through a process pool into a ``SweepAggregator``,
+   every merged profile byte-equal to batch); (c) the chaos smoke (a hard
+   worker crash, a torn shard, a corrupt cache entry: converged or
+   flagged); (d) Table IV and figs 1–6 and 8 on the card and again with
+   ``REPRO_BACKEND=numpy``, every file byte-equal.  No fault-free pass
+   may return a degraded point or log a retry.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2228,6 +2243,214 @@ def xlstm_phase() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the Benchpark sweeps and the paper's figures
+# ---------------------------------------------------------------------------
+
+#: seconds the smoke sweep's own process may take
+SMOKE_TIMEOUT_S = 420
+
+
+def _cold_start_probe(t_submit: float) -> dict:
+    """Runs in a fresh sweep-pool worker: the seconds to start it, to import
+    the runner and the four apps, to open a CUDA context, then the first
+    and a second (warm) trace + reduction of kripke's 64-rank paper point
+    on the card."""
+    t0 = time.time()
+    preloaded = "torch" in sys.modules and "repro_torch" in sys.modules
+    from dataclasses import replace
+
+    from repro_torch.benchpark import runner
+    from repro_torch.benchpark.spec import PAPER_EXPERIMENTS
+
+    runner.app_profile_fns()
+    t1 = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.time()
+    spec = PAPER_EXPERIMENTS["kripke-weak-dane"]
+    spec = replace(spec, points=spec.points[:1])
+    points = []
+    for _ in range(2):
+        t = time.time()
+        (prof,) = runner.run_experiment(spec, verbose=False, executor="serial")
+        points.append(time.time() - t)
+    return {
+        "start_s": t0 - t_submit,
+        "repro_torch_preloaded": preloaded,
+        "import_s": t1 - t0,
+        "cuda_context_s": t2 - t1,
+        "first_point_s": points[0],
+        "second_point_s": points[1],
+        "n_ranks": prof.n_ranks,
+    }
+
+
+def _files(root: Path) -> dict:
+    return {
+        str(p.relative_to(root)): p.read_bytes()
+        for p in sorted(root.rglob("*"))
+        if p.is_file()
+    }
+
+
+def _pool_against_serial(card) -> dict:
+    """kripke-weak-dane's four points, uncached: each point alone on the
+    serial executor, then the whole sweep on a fresh process pool."""
+    from dataclasses import replace
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.benchpark.runner import RetryLog, _pool_mp_context, run_experiment
+    from repro_torch.benchpark.spec import PAPER_EXPERIMENTS
+
+    with ProcessPoolExecutor(max_workers=1, mp_context=_pool_mp_context()) as ex:
+        probe = ex.submit(_cold_start_probe, time.time()).result()
+    log(f"sweeps worker cold start: {probe}")
+    spec = PAPER_EXPERIMENTS["kripke-weak-dane"]
+    rlog = RetryLog()
+    serial, serial_profs = [], []
+    for pt in spec.points:
+        t = time.perf_counter()
+        serial_profs += run_experiment(
+            replace(spec, points=(pt,)), verbose=False, executor="serial",
+            backend=card, retry_log=rlog,
+        )
+        serial.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    pool_profs = run_experiment(
+        spec, verbose=False, executor="process", backend=card, retry_log=rlog
+    )
+    pool_s = time.perf_counter() - t
+    if rlog.events or any(p.meta.get("degraded") for p in serial_profs + pool_profs):
+        fail(f"sweeps: a fault-free pass has degraded points or retries: {rlog.events}")
+    if [p.to_json() for p in pool_profs] != [p.to_json() for p in serial_profs]:
+        fail("sweeps: the process pool's profiles differ from the serial ones")
+    row = {
+        "cold_start": probe,
+        "ranks": [pt.n_ranks for pt in spec.points],
+        "serial_point_s": serial,
+        "serial_s": sum(serial),
+        "pool_s": pool_s,
+        "pool_workers": min(4, len(spec.points)),
+    }
+    log(f"sweeps kripke-weak-dane uncached: serial a point {serial} "
+        f"(sum {sum(serial):.3f} s), process pool {pool_s:.3f} s")
+    return row
+
+
+def sweeps_phase() -> dict:
+    import contextlib
+    import io
+    import os
+    import resource
+    import tempfile
+
+    from repro_torch.benchpark.runner import CacheManifest
+    from repro_torch.core.backend import TorchBackend, resolve_backend
+    from repro_torch.figures import paper_data
+    from repro_torch.figures.run import run_chaos, run_figures, run_live
+
+    card = resolve_backend(None)
+    if not (isinstance(card, TorchBackend) and card.device.type == "cuda"):
+        fail(f"the default backend is {card!r}, not torch on the card")
+    out = OUT_DIR / "sweeps"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    work = Path(tempfile.mkdtemp(prefix="sweeps-"))
+    row: dict = {}
+    seconds: dict = {}
+
+    # (a) smoke: its own process, so its peak RSS is the sweeps' own
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_PROFILE_CACHE_DIR=str(work / "smoke-cache"))
+    env.pop("REPRO_BACKEND", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.figures.run", "--smoke",
+         "--backend", "torch", "--out", str(out / "smoke")],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=SMOKE_TIMEOUT_S,
+    )
+    seconds["smoke"] = time.perf_counter() - t
+    (out / "smoke.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"sweeps smoke exited {proc.returncode}: {proc.stderr[-3000:]}")
+    smoke = json.loads((out / "smoke" / "smoke_summary.json").read_text())
+    if (smoke["first_pass_misses"], smoke["cached_pass_hits"]) != (4, 4):
+        fail(f"sweeps smoke: a fresh cache should miss 4 then hit 4: {smoke}")
+    if "cuda" not in smoke["backend"] or "numpy" not in smoke["other_backend"]:
+        fail(f"sweeps smoke compared {smoke['backend']} with {smoke['other_backend']}")
+    row["smoke"] = smoke
+    last = proc.stdout.strip().splitlines()[-1]
+    log(f"sweeps (a) smoke: {seconds['smoke']:.1f} s; {last}")
+
+    # worker cold start and per-point seconds, pool against serial
+    t = time.perf_counter()
+    row["pool_vs_serial"] = _pool_against_serial(card)
+    seconds["pool_vs_serial"] = time.perf_counter() - t
+
+    # (b) live and (c) chaos on the card
+    for name, fn in (("live", run_live), ("chaos", run_chaos)):
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            row[name] = fn(str(out / name), backend=card)
+        seconds[name] = time.perf_counter() - t
+        log(f"sweeps ({'b' if name == 'live' else 'c'}) {name}: "
+            f"{seconds[name]:.1f} s; {buf.getvalue().strip()}")
+    if "pool_broken" not in row["chaos"]["event_kinds"]:
+        fail(f"sweeps chaos: the hard worker crash left no trace: {row['chaos']}")
+
+    # (d) the figures on the card, then the same drivers on NumPy
+    figures = {}
+    prev = {k: os.environ.get(k) for k in ("REPRO_BACKEND", "REPRO_PROFILE_CACHE_DIR")}
+    try:
+        for name, backend_env in (("card", None), ("numpy", "numpy")):
+            os.environ.pop("REPRO_BACKEND", None)
+            if backend_env:
+                os.environ["REPRO_BACKEND"] = backend_env
+            cache = work / f"figures-cache-{name}"
+            os.environ["REPRO_PROFILE_CACHE_DIR"] = str(cache)
+            t = time.perf_counter()
+            with open(out / f"figures_{name}.csv", "w") as f, \
+                    contextlib.redirect_stdout(f):
+                rows = run_figures(results=str(out / f"figures_{name}"))
+            seconds[f"figures_{name}"] = time.perf_counter() - t
+            figures[name] = {
+                "rows": len(rows), "manifest": CacheManifest(str(cache)).read()
+            }
+    finally:
+        for k, v in prev.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    paper_data.profiles.cache_clear()
+    got = _files(out / "figures_card")
+    want = _files(out / "figures_numpy")
+    if set(got) != set(want):
+        fail(f"sweeps figures: the card wrote {sorted(set(got) ^ set(want))} apart")
+    differ = [k for k in got if got[k] != want[k]]
+    if differ:
+        fail(f"sweeps figures: card and NumPy files differ: {differ}")
+    md = sorted(k for k in got if k.endswith(".md"))
+    if len(md) != 7:
+        fail(f"sweeps figures: expected 7 markdown files, found {md}")
+    figures["files"] = len(got)
+    figures["markdown"] = md
+    row["figures"] = figures
+    log(f"sweeps (d) figures: card {seconds['figures_card']:.1f} s, NumPy "
+        f"{seconds['figures_numpy']:.1f} s; {len(got)} files byte-equal "
+        f"({', '.join(md)})")
+    shutil.rmtree(work, ignore_errors=True)
+    row["seconds"] = seconds
+    peak_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    row["parent_peak_rss_mb"] = peak_kib / 1024.0
+    log(f"sweeps seconds: {seconds}; smoke peak RSS {smoke['peak_rss_mb']:.0f} MiB, "
+        f"{smoke['sweep_rss_mb']:.0f} above the {smoke['start_rss_mb']:.0f} "
+        "it started with")
+    return row
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2325,6 +2548,15 @@ def main() -> None:
     apps["segment_reduce_launches"] = seg.launch_count()
     log(f"apps path kernel launches: segment_reduce={apps['segment_reduce_launches']}")
 
+    # 14. the Benchpark sweeps and the paper's figures; their reductions
+    # run no kernel of this repo (traced profiles take the f64-limb
+    # matmul, pair_codes and torch.unique), so the count stays at 0 here
+    seg.reset_launch_count()
+    sweeps = sweeps_phase()
+    sweeps["segment_reduce_launches"] = seg.launch_count()
+    log("sweeps path kernel launches: "
+        f"segment_reduce={sweeps['segment_reduce_launches']}")
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -2383,6 +2615,7 @@ def main() -> None:
         "mlstm": mlstm_rows,
         "xlstm": xlstm,
         "apps": apps,
+        "sweeps": sweeps,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

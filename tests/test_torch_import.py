@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 40, proc.stdout
+    assert n >= 60, proc.stdout
     imported = set(proc.stdout.split())
     for name in (
         "repro_torch.kernels.ssd_scan",
@@ -67,6 +67,15 @@ def test_every_port_module_imports_without_jax():
         "repro_torch.core.network",
         "repro_torch.core.reports",
         "repro_torch.core.streaming",
+        "repro_torch.benchpark.spec",
+        "repro_torch.benchpark.runner",
+        "repro_torch.benchpark.aggregator",
+        "repro_torch.ckpt.manager",
+        "repro_torch.figures.paper_data",
+        "repro_torch.figures.fig8_halo_heatmap",
+        "repro_torch.figures.run",
+        "repro_torch.examples.quickstart",
+        "repro_torch.examples.profile_comm_patterns",
     ):
         assert name in imported, proc.stdout
 
@@ -75,7 +84,7 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 41
+    assert len(sources) >= 61
     names = {os.path.relpath(p, _ROOT) for p in sources}
     assert {
         "src/repro_torch/kernels/mlstm_scan.py",
@@ -86,6 +95,12 @@ def test_no_source_imports_jax_or_repro():
         "src/repro_torch/core/network.py",
         "src/repro_torch/core/reports.py",
         "src/repro_torch/core/streaming.py",
+        "src/repro_torch/benchpark/spec.py",
+        "src/repro_torch/benchpark/runner.py",
+        "src/repro_torch/benchpark/aggregator.py",
+        "src/repro_torch/ckpt/manager.py",
+        "src/repro_torch/figures/run.py",
+        "src/repro_torch/examples/quickstart.py",
     } <= names
     for path in sources:
         with open(path) as f:
