@@ -107,7 +107,24 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    worker crash, a torn shard, a corrupt cache entry: converged or
    flagged); (d) Table IV and figs 1–6 and 8 on the card and again with
    ``REPRO_BACKEND=numpy``, every file byte-equal.  No fault-free pass
-   may return a degraded point or log a retry.
+   may return a degraded point or log a retry (fig 7 is among the figures);
+15. distributed — the four apps' distributed drivers run for real over
+   ``torch.distributed`` (``repro_torch.core.ranks.run_ranks``): (a) NCCL
+   at world size 1 on the card, each app at one rank of its paper per-rank
+   size (kripke 16×32×32 zones and 2 octants, amg 32×32×16, laghos
+   512×512 for 2 steps, beatnik 32×32 for 4 steps), held to its oracle on
+   the card at the CPU tests' tolerances, the profile recorded during the
+   run byte-equal to the meta trace's, the driver's seconds (a first, cold
+   call and a second, warm one) beside the oracle's; with one rank every group has one member and every perm is
+   empty, so this checks placement, group set-up and the collectives'
+   launches, not traffic; (b) gloo on 8 ranks with CPU tensors on the
+   card's host: kripke and laghos at the CPU tests' 8-rank configs, held
+   the same way, with the spawn and join seconds and each rank's peak RSS;
+   (c) the compiled layer (``scan_graph_collectives``) of fig 7's kripke-8
+   (3 ops, 3072 wire bytes) and of the four apps at 8 ranks:
+   ``Frame.from_hlo`` on the card byte-equal to ``NumpyBackend`` with the
+   segmented-reduce kernel launched, and fig 7's markdown and CSV equal on
+   the card and on NumPy.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2433,8 +2450,8 @@ def sweeps_phase() -> dict:
     if differ:
         fail(f"sweeps figures: card and NumPy files differ: {differ}")
     md = sorted(k for k in got if k.endswith(".md"))
-    if len(md) != 7:
-        fail(f"sweeps figures: expected 7 markdown files, found {md}")
+    if len(md) != 8:
+        fail(f"sweeps figures: expected 8 markdown files, found {md}")
     figures["files"] = len(got)
     figures["markdown"] = md
     row["figures"] = figures
@@ -2449,6 +2466,120 @@ def sweeps_phase() -> dict:
         f"{smoke['sweep_rss_mb']:.0f} above the {smoke['start_rss_mb']:.0f} "
         "it started with")
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the apps across ranks over torch.distributed; the compiled layer
+# ---------------------------------------------------------------------------
+
+def _held(label: str, res: dict, apps, smi: str) -> list:
+    """Each app's driver against its oracle at ``multirank.TOLERANCES``, and
+    the profile recorded during the run against the meta trace's."""
+    from repro_torch.apps import multirank
+
+    rows = []
+    for app in apps:
+        row = multirank.check(app, res[app])
+        row["shapes"] = [list(o.shape) for o in res[app]["out"]]
+        if not row["within_tolerance"]:
+            fail(f"{label} {app}: the driver differs from the oracle "
+                 f"(max {row['max_abs_err']})")
+        if not row["profile_equal"]:
+            fail(f"{label} {app}: the profile recorded in the run differs from the "
+                 "meta trace's")
+        rows.append(row)
+        log(f"distributed {label} {app}: driver_s={row['driver_s']:.4f} "
+            f"(cold {row['driver_cold_s']:.4f}) oracle_s={row['oracle_s']:.4f} "
+            f"(cold {row['oracle_cold_s']:.4f}) max_abs_err={row['max_abs_err']} "
+            f"profile equal to the meta trace's [{smi}]")
+    return rows
+
+
+def distributed_phase(rt, smi: str) -> dict:
+    from repro_torch.apps import multirank
+    from repro_torch.core import reports
+    from repro_torch.core.backend import NumpyBackend, resolve_backend
+    from repro_torch.core.hlo import scan_graph_collectives
+    from repro_torch.core.ranks import run_ranks
+    from repro_torch.core.thicket import Frame
+    from repro_torch.figures import fig7_hlo_vs_traced
+
+    out: dict = {}
+    # (a) NCCL at world size 1 on the card, each app at its paper rank size
+    t = time.perf_counter()
+    params = multirank.ONE_RANK_PARAMS
+    res = run_ranks(multirank.run_apps, 1, args=(params,))
+    out["nccl_world_1"] = {"seconds": time.perf_counter() - t,
+                           "apps": _held("(a) nccl world 1", res, params, smi),
+                           "ranks": res["ranks"]}
+    log(f"distributed (a) nccl world 1: {out['nccl_world_1']['seconds']:.1f} s for "
+        f"the call, rank peak RSS {res['ranks'][0]['peak_rss_mb']:.0f} MiB (of "
+        f"VmRSS samples) [{smi}]")
+
+    # (b) gloo, 8 ranks, CPU tensors on the card's host
+    params = {a: multirank.PARITY_PARAMS[a] for a in ("kripke", "laghos")}
+    t_call = time.time()
+    res = run_ranks(multirank.run_apps, 8, backend="gloo", args=(params, "cpu"))
+    t_back = time.time()
+    stats = res["ranks"]
+    spawn_s = max(s["t_enter"] for s in stats) - t_call
+    join_s = t_back - max(s["t_exit"] for s in stats)
+    out["gloo_8_cpu"] = {
+        "apps": _held("(b) gloo 8 ranks, CPU", res, params, smi),
+        "spawn_s": spawn_s, "join_s": join_s, "call_s": t_back - t_call,
+        "peak_rss_mb": [s["peak_rss_mb"] for s in stats],
+    }
+    log(f"distributed (b) gloo 8 ranks, CPU tensors: spawn (start, import, "
+        f"rendezvous) {spawn_s:.2f} s, join {join_s:.2f} s, call {t_back - t_call:.2f} "
+        f"s; peak RSS a rank (MiB, of VmRSS samples) "
+        f"{[round(s['peak_rss_mb']) for s in stats]}")
+
+    # (c) the compiled layer: fig 7's kripke-8 and the four apps at 8 ranks
+    card = resolve_backend(None)
+    entries, layer = [], {}
+    t = time.perf_counter()
+    prof, _rec, buf = fig7_hlo_vs_traced.layers(backend=card)
+    fig7_entries = [(prof.name, prof.n_ranks, buf, {"app": "kripke"})]
+    entries += fig7_entries
+    layer["fig7-kripke-8"] = {"ops": buf.n_ops, "wire_bytes": int(buf.wire_bytes.sum())}
+    if (buf.n_ops, int(buf.wire_bytes.sum()), buf.region_names) != (
+            3, 3072, ["sweep_comm"]):
+        fail(f"compiled layer: fig 7's kripke-8 is {layer['fig7-kripke-8']}, "
+             "not 3 ops and 3072 wire bytes in sweep_comm")
+    for app, p in multirank.PARITY_PARAMS.items():
+        cfg = multirank.app_config(app, p)
+        x = multirank.app_inputs(app, cfg, torch.device("cpu"))
+        b = scan_graph_collectives(multirank.app_driver(app, cfg), x,
+                                   mesh=cfg.decomp.make_mesh(),
+                                   total_devices=cfg.decomp.n_ranks)
+        entries.append((f"{app}-8", 8, b, {"app": app}))
+        layer[app] = {"ops": b.n_ops, "wire_bytes": int(b.wire_bytes.sum())}
+    capture_s = time.perf_counter() - t
+    before = rt.launch_count()
+    got, card_s = _timed(lambda: Frame.from_hlo(entries, backend=card).to_csv())
+    launches = rt.launch_count() - before
+    want, numpy_s = _timed(lambda: Frame.from_hlo(entries, backend=NumpyBackend()).to_csv())
+    if got != want:
+        fail("compiled layer: Frame.from_hlo on the card differs from NumPy")
+    if launches <= 0:
+        fail("compiled layer: the segmented-reduce kernel was not launched")
+
+    def fig7(be):
+        return (reports.hlo_vs_traced([prof], fig7_entries, backend=be),
+                Frame.concat([Frame.from_profiles([prof]),
+                              Frame.from_hlo(fig7_entries, backend=be)]).to_csv())
+
+    if fig7(card) != fig7(NumpyBackend()):
+        fail("compiled layer: fig 7's markdown or CSV differs between the card and NumPy")
+    (OUT_DIR / "fig7_card.md").write_text("\n\n".join(fig7(card)))
+    out["compiled_layer"] = {"layers": layer, "capture_s": capture_s,
+                             "card_s": card_s, "numpy_s": numpy_s,
+                             "frame_rows": len(got.splitlines()) - 1,
+                             "launches": launches}
+    log(f"distributed (c) compiled layer: {layer}; captured in {capture_s:.2f} s; "
+        f"Frame.from_hlo card_s={card_s:.4f} numpy_s={numpy_s:.4f}, byte-equal, "
+        f"segment_reduce launches={launches}; fig 7 equal on the card and NumPy [{smi}]")
+    return out
 
 
 def main() -> None:
@@ -2548,14 +2679,23 @@ def main() -> None:
     apps["segment_reduce_launches"] = seg.launch_count()
     log(f"apps path kernel launches: segment_reduce={apps['segment_reduce_launches']}")
 
-    # 14. the Benchpark sweeps and the paper's figures; their reductions
-    # run no kernel of this repo (traced profiles take the f64-limb
-    # matmul, pair_codes and torch.unique), so the count stays at 0 here
+    # 14. the Benchpark sweeps and the paper's figures; the sweeps'
+    # reductions run no kernel of this repo (traced profiles take the
+    # f64-limb matmul, pair_codes and torch.unique); fig 7's compiled layer
+    # runs the segmented reduce
     seg.reset_launch_count()
     sweeps = sweeps_phase()
     sweeps["segment_reduce_launches"] = seg.launch_count()
     log("sweeps path kernel launches: "
         f"segment_reduce={sweeps['segment_reduce_launches']}")
+
+    # 15. the four apps across ranks over torch.distributed, and the
+    # compiled layer captured from their graphs; launches counted from here
+    seg.reset_launch_count()
+    distributed = distributed_phase(seg, smi)
+    distributed["segment_reduce_launches"] = seg.launch_count()
+    log("distributed path kernel launches: "
+        f"segment_reduce={distributed['segment_reduce_launches']}")
 
     main_case = cases[0]
     entry = {
@@ -2616,6 +2756,7 @@ def main() -> None:
         "xlstm": xlstm,
         "apps": apps,
         "sweeps": sweeps,
+        "distributed": distributed,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

@@ -24,8 +24,9 @@ hierarchy, matching "runs on Dane had more levels".
 
 The per-rank V-cycle takes its communication from a :class:`_Comm`: the
 instrumented collectives under :func:`solve` (traced on meta tensors by
-:func:`profile`), or zero Dirichlet ghosts, one rank and no collective in
-the single-domain oracle :func:`reference_solve`.
+:func:`profile`, or run across the ranks of a process group), or zero
+Dirichlet ghosts, one rank and no collective in the single-domain oracle
+:func:`reference_solve`, which needs no process group.
 """
 
 from __future__ import annotations
@@ -218,8 +219,9 @@ def _cycles(f, cfg: AMGConfig, comm: _Comm) -> tuple:
 
 
 def solve(cfg: AMGConfig, mesh: compat.Mesh):
-    """``n_cycles`` V-cycles + residual norm over global arrays (trace-only:
-    meta tensors)."""
+    """``n_cycles`` V-cycles + residual norm over global arrays: traced on
+    meta tensors, or run across the ranks of a process group of the mesh's
+    size on real ones (``compat.shard_map``)."""
     spec = compat.PartitionSpec(*AXIS_NAMES)
 
     def run(f):

@@ -126,7 +126,9 @@ def zmodel_step(z, w, cfg: BeatnikConfig, step: int):
 
 
 def run_steps(cfg: BeatnikConfig, mesh: compat.Mesh):
-    """The steps over global arrays (shards dims 0, 1; trace-only: meta)."""
+    """The steps over global arrays (shards dims 0, 1): traced on meta
+    tensors, or run across the ranks of a process group of the mesh's size
+    on real ones (``compat.shard_map``)."""
     spec = compat.PartitionSpec("x", "y")
 
     def run(state):

@@ -261,7 +261,9 @@ def make_source(cfg: KripkeConfig, *, global_shape: bool = False, device=None):
 
 
 def distributed_sweep(cfg: KripkeConfig, mesh: compat.Mesh):
-    """Global-array sweep over the given mesh (trace-only: meta tensors)."""
+    """Global-array sweep over the given mesh: traced on meta tensors, or
+    run across the ranks of a process group of the mesh's size on real ones
+    (``compat.shard_map``)."""
     spec = compat.PartitionSpec(None, None, *AXIS_NAMES, None, None)
 
     def run(q):

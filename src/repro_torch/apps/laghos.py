@@ -18,9 +18,10 @@ fields, and the paper's annotated regions:
 
 The per-rank step takes its communication from a :class:`_Comm`: the
 instrumented collectives under :func:`run_steps` (traced on meta tensors by
-:func:`profile`), or zero Dirichlet ghosts and no collective in the
-single-domain oracle :func:`reference_steps`, which runs the same
-arithmetic on the undecomposed grid.
+:func:`profile`, or run across the ranks of a process group), or zero
+Dirichlet ghosts and no collective in the single-domain oracle
+:func:`reference_steps`, which runs the same arithmetic on the
+undecomposed grid and needs no process group.
 """
 
 from __future__ import annotations
@@ -155,7 +156,9 @@ def _steps(state: dict, cfg: LaghosConfig, comm: _Comm) -> tuple:
 
 
 def run_steps(cfg: LaghosConfig, mesh: compat.Mesh):
-    """The steps over global arrays (shards dims 0, 1; trace-only: meta)."""
+    """The steps over global arrays (shards dims 0, 1): traced on meta
+    tensors, or run across the ranks of a process group of the mesh's size
+    on real ones (``compat.shard_map``)."""
     spec = compat.PartitionSpec("x", "y")
     specs = {k: spec for k in FIELDS}
 

@@ -49,7 +49,8 @@ class Decomp3D:
         return topology(*self.axes())
 
     def make_mesh(self) -> compat.Mesh:
-        """Named-axis mesh of the decomposition (trace-only, no devices)."""
+        """Named-axis mesh of the decomposition (no devices attached: a real
+        run takes its ranks from the process group)."""
         return compat.make_mesh(self.shape, AXIS_NAMES)
 
 

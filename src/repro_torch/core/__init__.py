@@ -1,17 +1,22 @@
 """Core: communication-region profiling on PyTorch.
 
 Public API (every module of the JAX package's core except ``hlo_cost``):
-  compat                     — SPMD shim: named mesh axes, trace-only
-                               shard_map over meta tensors, axis_index /
-                               axis_size
+  compat                     — SPMD shim: named mesh axes, shard_map
+                               (a trace on meta tensors, or a real run
+                               over torch.distributed), axis_index /
+                               axis_size / axis_group
   comm_region(name)          — mark a communication region (Caliper analog)
   recording()                — install a profiling recorder for a trace
   profile_traced(fn, *args)  — trace fn on meta tensors and return its
                                CommProfile
-  collectives                — instrumented collectives (recording on meta
-                               tensors)
+  collectives                — instrumented collectives: recording, and one
+                               torch.library custom op each (fake on meta
+                               tensors, torch.distributed on real ones)
+  ranks.run_ranks            — spawn N local ranks of a per-rank program
   scan_hlo_collectives       — compiled-HLO communication extraction into a
                                columnar HloCollectiveBuffer
+  scan_graph_collectives     — the port's compiled layer: the collective
+                               custom ops of a captured per-rank graph
   Frame                      — Thicket-style analysis (traced + hlo +
                                network rows)
   NetworkModeledProfiler     — modeled fabric costs per region (ring /
@@ -67,6 +72,7 @@ from repro_torch.core.hlo import (  # noqa: F401
     HloCollectiveBuffer,
     parse_hlo_collectives,
     parse_hlo_collectives_with_loops,
+    scan_graph_collectives,
     scan_hlo_collectives,
     summarize_collectives,
 )

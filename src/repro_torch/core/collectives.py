@@ -6,10 +6,30 @@ calls these wrappers inside ``compat.shard_map``; each one — if a profiling
 recorder is active (``repro_torch.core.regions.recording``) — reports the
 *static* communication structure of the call to the innermost region.
 
-On meta tensors (the trace-only path of ``profile_traced``) each wrapper
-records and returns a meta result of the right shape.  Real execution over
-``torch.distributed`` is a later slice of the port; until then a real
-tensor raises ``NotImplementedError``.
+Each wrapper then calls one ``torch.library`` custom op per tensor leaf,
+``torch.ops.repro_torch.<name>``, whose arguments are the tensor, the axis
+key (``"x,y"``), the call's static parameters (``perm``, ``axis`` /
+``tiled``, ``root``, ...) and the region path (``"main/sweep_comm"``):
+
+* on meta tensors (the trace of ``profile_traced``) the op's fake
+  implementation returns a meta result of the right shape;
+* on real tensors (inside ``compat.shard_map`` over an initialized process
+  group) it runs ``torch.distributed`` on the axis's group
+  (:func:`repro_torch.core.compat.axis_group`): ``batch_isend_irecv``
+  for ``ppermute``, ``all_reduce`` for ``psum`` / ``pmean`` / ``pmax`` /
+  ``pmin`` and, masked, for ``pbroadcast`` (as ``repro`` realizes it),
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+  ``all_to_all_single``, with the blocks reordered from the group's rank
+  order to the axis index order;
+* in a captured graph (``make_fx``, a ``torch.compile`` backend) each op is
+  a node that carries its region path, which
+  :func:`repro_torch.core.hlo.scan_graph_collectives` reads as the compiled
+  collective layer.
+
+Recording does not depend on the tensors: every rank records the same
+global structure, so a profile recorded during a real run equals the meta
+trace's.  ``ppermute`` executes ``perm``; ``record_pairs`` only changes
+what is recorded.
 
 Because the communication is fully determined by the trace (shapes, dtypes,
 permutations, axis sizes are all static), the recorded statistics are exact.
@@ -73,6 +93,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.core import compat
 from repro_torch.core import regions as _regions
@@ -110,21 +132,6 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return {k: _tree_map(fn, v) for k, v in tree.items()}
-
-
-def _meta_result(x, shape_fn=tuple):
-    """Meta tensor(s) shaped by ``shape_fn(leaf.shape)``, or raise for real
-    tensors (execution over torch.distributed is not ported yet)."""
-
-    def one(leaf: torch.Tensor) -> torch.Tensor:
-        if leaf.device.type != "meta":
-            raise NotImplementedError(
-                "instrumented collectives execute over torch.distributed in a "
-                "later slice (ROADMAP queue 1, item 6); trace with meta tensors"
-            )
-        return torch.empty(shape_fn(leaf.shape), dtype=leaf.dtype, device="meta")
-
-    return _tree_map(one, x)
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +209,240 @@ def build_collective_event(
 
 
 # ---------------------------------------------------------------------------
+# The custom ops: fake (shape) implementations for the trace and captured
+# graphs, torch.distributed bodies for real tensors
+# ---------------------------------------------------------------------------
+
+
+def _names(axes: str) -> tuple:
+    return tuple(axes.split(","))
+
+
+@torch.library.custom_op("repro_torch::ppermute", mutates_args=())
+def _ppermute_op(
+    x: torch.Tensor, axes: str, perm: list[int], region_path: str
+) -> torch.Tensor:
+    """``perm`` holds the (src, dst) axis-index pairs flattened."""
+    names = _names(axes)
+    me = compat.axis_position(names)
+    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    send = x.contiguous()
+    ops = []
+    for src, dst in zip(perm[0::2], perm[1::2]):
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, send, compat.axis_peer(names, dst)))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, compat.axis_peer(names, src)))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def _reduced(x: torch.Tensor, axes: str, op) -> torch.Tensor:
+    grp = compat.axis_group(_names(axes))
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=grp.group)
+    return out
+
+
+@torch.library.custom_op("repro_torch::psum", mutates_args=())
+def _psum_op(x: torch.Tensor, axes: str, region_path: str) -> torch.Tensor:
+    return _reduced(x, axes, dist.ReduceOp.SUM)
+
+
+@torch.library.custom_op("repro_torch::pmean", mutates_args=())
+def _pmean_op(x: torch.Tensor, axes: str, region_path: str) -> torch.Tensor:
+    return _reduced(x, axes, dist.ReduceOp.SUM) / compat.axis_size(_names(axes))
+
+
+@torch.library.custom_op("repro_torch::pmax", mutates_args=())
+def _pmax_op(x: torch.Tensor, axes: str, region_path: str) -> torch.Tensor:
+    return _reduced(x, axes, dist.ReduceOp.MAX)
+
+
+@torch.library.custom_op("repro_torch::pmin", mutates_args=())
+def _pmin_op(x: torch.Tensor, axes: str, region_path: str) -> torch.Tensor:
+    return _reduced(x, axes, dist.ReduceOp.MIN)
+
+
+@torch.library.custom_op("repro_torch::pbroadcast", mutates_args=())
+def _pbroadcast_op(
+    x: torch.Tensor, axes: str, root: int, region_path: str
+) -> torch.Tensor:
+    """``root``'s value on every rank as ``repro`` computes it: a psum of
+    ``x`` masked to zero off the root."""
+    mask = float(compat.axis_position(_names(axes)) == root)
+    return _reduced(x * torch.tensor(mask, device=x.device).to(x.dtype), axes,
+                    dist.ReduceOp.SUM)
+
+
+@torch.library.custom_op("repro_torch::all_gather", mutates_args=())
+def _all_gather_op(
+    x: torch.Tensor, axes: str, axis_size: int, axis: int, tiled: bool, region_path: str
+) -> torch.Tensor:
+    grp = compat.axis_group(_names(axes))
+    blocks = torch.empty((grp.size, *x.shape), dtype=x.dtype, device=x.device)
+    compat.all_gather_flat(
+        blocks.view(-1), x.contiguous().view(-1), group=grp.group
+    )
+    out = blocks[list(grp.group_rank_of_index)].movedim(0, axis)
+    return (out.flatten(axis, axis + 1) if tiled else out).contiguous()
+
+
+def _chunks(x: torch.Tensor, dim: int, n: int, tiled: bool) -> torch.Tensor:
+    """``x`` split ``n`` ways along ``dim`` as an ``(n, ...)`` stack: tiled
+    keeps the dim in each chunk, untiled (``x.shape[dim] == n``) drops it."""
+    y = x.movedim(dim, 0)
+    if tiled:
+        return y.reshape(n, y.shape[0] // n, *y.shape[1:]).movedim(1, dim + 1)
+    return y
+
+
+@torch.library.custom_op("repro_torch::psum_scatter", mutates_args=())
+def _psum_scatter_op(
+    x: torch.Tensor,
+    axes: str,
+    axis_size: int,
+    scatter_dimension: int,
+    tiled: bool,
+    region_path: str,
+) -> torch.Tensor:
+    grp = compat.axis_group(_names(axes))
+    chunks = _chunks(x, scatter_dimension, grp.size, tiled)
+    send = chunks[list(grp.index_of_group_rank)].contiguous()
+    out = torch.empty(chunks.shape[1:], dtype=x.dtype, device=x.device)
+    compat.reduce_scatter_flat(out.view(-1), send.view(-1), group=grp.group)
+    return out
+
+
+@torch.library.custom_op("repro_torch::all_to_all", mutates_args=())
+def _all_to_all_op(
+    x: torch.Tensor,
+    axes: str,
+    axis_size: int,
+    split_axis: int,
+    concat_axis: int,
+    tiled: bool,
+    region_path: str,
+) -> torch.Tensor:
+    grp = compat.axis_group(_names(axes))
+    chunks = _chunks(x, split_axis, grp.size, tiled)
+    send = chunks[list(grp.index_of_group_rank)].contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv.view(-1), send.view(-1), group=grp.group)
+    out = recv[list(grp.group_rank_of_index)].movedim(0, concat_axis)
+    return (out.flatten(concat_axis, concat_axis + 1) if tiled else out).contiguous()
+
+
+#: each op's fake implementation, by op name (the meta trace's fast path)
+_FAKES = {}
+
+
+def _fake(op):
+    def register(fn):
+        op.register_fake(fn)
+        _FAKES[op._name] = fn
+        return fn
+
+    return register
+
+
+def _empty(x: torch.Tensor, shape) -> torch.Tensor:
+    # several times cheaper on meta tensors than empty_like / new_empty
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+
+def _same(x: torch.Tensor, *_args) -> torch.Tensor:
+    return _empty(x, x.shape)
+
+
+for _op in (_ppermute_op, _psum_op, _pmean_op, _pmax_op, _pmin_op, _pbroadcast_op):
+    _fake(_op)(_same)
+
+
+def _resized(shape, dim: int, factor: int, tiled: bool, grow: bool) -> list:
+    """Shape after gathering (``grow``) or scattering ``factor`` ways along
+    ``dim``: tiled changes the dim's size, untiled adds / removes the dim."""
+    shape = list(shape)
+    if tiled:
+        shape[dim] = shape[dim] * factor if grow else shape[dim] // factor
+    elif grow:
+        shape.insert(dim, factor)
+    else:
+        del shape[dim]
+    return shape
+
+
+@_fake(_all_gather_op)
+def _(x, axes, axis_size, axis, tiled, region_path):
+    return _empty(x, _resized(x.shape, axis, axis_size, tiled, grow=True))
+
+
+@_fake(_psum_scatter_op)
+def _(x, axes, axis_size, scatter_dimension, tiled, region_path):
+    shape = _resized(x.shape, scatter_dimension, axis_size, tiled, grow=False)
+    return _empty(x, shape)
+
+
+@_fake(_all_to_all_op)
+def _(x, axes, axis_size, split_axis, concat_axis, tiled, region_path):
+    shape = _resized(x.shape, split_axis, axis_size, tiled, grow=False)
+    return _empty(x, _resized(shape, concat_axis, axis_size, tiled, grow=True))
+
+
+def _uncaptured_meta(leaf) -> bool:
+    """A plain meta tensor with no graph being captured (no ``make_fx``
+    mode, no Dynamo trace): the op's node would reach no graph, so its fake
+    result is all a call needs."""
+    return (
+        not torch.compiler.is_compiling()
+        and type(leaf) is torch.Tensor
+        and leaf.is_meta
+        and _get_current_dispatch_mode() is None
+    )
+
+
+def _per_leaf(name: str, x, axis_name, *static):
+    """``torch.ops.repro_torch.<name>`` on every tensor leaf of ``x``, with
+    the axis key, the static parameters and the current region path.
+
+    The meta trace skips the dispatcher: an uncaptured meta leaf takes the
+    op's fake implementation directly (the custom op's dispatch costs
+    several times that a call, and the trace makes thousands of calls).
+    """
+    key = compat.axis_key(axis_name)
+    path = "/".join(_regions.current_region_path())
+    op, fake = getattr(torch.ops.repro_torch, name), _FAKES[name]
+
+    def one(leaf):
+        if _uncaptured_meta(leaf):
+            return fake(leaf, key, *static, path)
+        return op(leaf, key, *static, path)
+
+    return _tree_map(one, x)
+
+
+# ---------------------------------------------------------------------------
 # Point-to-point-like pattern: ppermute (TPU-native halo exchange primitive)
 # ---------------------------------------------------------------------------
+
+
+#: (perm, axis size) pairs already checked: the apps repeat a few perms
+_CHECKED_PERMS: set = set()
+
+
+def _check_perm(perm: tuple, n: int) -> None:
+    if (perm, n) in _CHECKED_PERMS:
+        return
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute perm is not a permutation: {perm}")
+    if any(not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute perm {perm} indexes outside an axis of {n}")
+    _CHECKED_PERMS.add((perm, n))
 
 
 def ppermute(
@@ -214,15 +453,19 @@ def ppermute(
     ``perm`` is a sequence of ``(src, dst)`` index pairs along ``axis_name``.
     Each pair is one point-to-point message of ``nbytes(x)`` — this is the
     halo-exchange building block, the pattern the paper's communication
-    regions were designed to capture.
+    regions were designed to capture.  A rank that is no pair's destination
+    gets zeros, as under ``lax.ppermute``.
 
     ``record_pairs``: optional *global-rank* (src, dst) pairs to record
     instead of the executed permutation.  SPMD collectives run on every rank
     every step; when the logical pattern is data-dependent-sparse (e.g. only
     the active wavefront diagonal of a KBA sweep carries real data), the
     caller can pass the logically-active pairs so statistics match what an
-    MPI implementation would send (see DESIGN.md §2).
+    MPI implementation would send (see DESIGN.md §2).  The op always
+    executes ``perm``.
     """
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    _check_perm(perm, _axis_size(axis_name))
     if _regions.active_recorder() is not None:
         topo = active_topology()
         total = sum(_nbytes(leaf) for leaf in _flatten(x))
@@ -238,7 +481,8 @@ def ppermute(
             pairs = perm
             n = _axis_size(axis_name)
         _regions.record_p2p("ppermute", axis_name, pairs, n, total)
-    return _meta_result(x)
+    flat = [i for pair in perm for i in pair]
+    return _per_leaf("ppermute", x, axis_name, flat)
 
 
 # ---------------------------------------------------------------------------
@@ -269,67 +513,57 @@ def _record_collective(kind, x, axis_name, bytes_factor) -> None:
 
 def psum(x, axis_name):
     _record_collective("psum", x, axis_name, lambda n: 2 * (n - 1) / n)
-    return _meta_result(x)
+    return _per_leaf("psum", x, axis_name)
 
 
 def pmean(x, axis_name):
     _record_collective("pmean", x, axis_name, lambda n: 2 * (n - 1) / n)
-    return _meta_result(x)
+    return _per_leaf("pmean", x, axis_name)
 
 
 def pmax(x, axis_name):
     _record_collective("pmax", x, axis_name, lambda n: 2 * (n - 1) / n)
-    return _meta_result(x)
+    return _per_leaf("pmax", x, axis_name)
 
 
 def pmin(x, axis_name):
     _record_collective("pmin", x, axis_name, lambda n: 2 * (n - 1) / n)
-    return _meta_result(x)
-
-
-def _resized(shape, dim: int, factor: int, tiled: bool, grow: bool) -> list:
-    """Shape after gathering (``grow``) or scattering ``factor`` ways along
-    ``dim``: tiled changes the dim's size, untiled adds / removes the dim."""
-    shape = list(shape)
-    if tiled:
-        shape[dim] = shape[dim] * factor if grow else shape[dim] // factor
-    elif grow:
-        shape.insert(dim, factor)
-    else:
-        del shape[dim]
-    return shape
+    return _per_leaf("pmin", x, axis_name)
 
 
 def all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False):
     _record_collective("all_gather", x, axis_name, lambda n: (n - 1))
     n = _axis_size(axis_name)
-    return _meta_result(x, lambda s: _resized(s, axis, n, tiled, grow=True))
+    return _per_leaf("all_gather", x, axis_name, n, axis, tiled)
 
 
 def psum_scatter(x, axis_name, *, scatter_dimension: int = 0, tiled: bool = False):
     _record_collective("reduce_scatter", x, axis_name, lambda n: (n - 1) / n)
     n = _axis_size(axis_name)
-    return _meta_result(
-        x, lambda s: _resized(s, scatter_dimension, n, tiled, grow=False)
+    return _per_leaf(
+        "psum_scatter", x, axis_name, n, scatter_dimension, tiled
     )
 
 
 def all_to_all(x, axis_name, split_axis: int, concat_axis: int, *, tiled: bool = False):
     _record_collective("all_to_all", x, axis_name, lambda n: (n - 1) / n)
     n = _axis_size(axis_name)
-
-    def shape(s):
-        return _resized(
-            _resized(s, split_axis, n, tiled, grow=False), concat_axis, n, tiled, True
-        )
-
-    return _meta_result(x, shape)
+    return _per_leaf(
+        "all_to_all",
+        x,
+        axis_name,
+        n,
+        split_axis,
+        concat_axis,
+        tiled,
+    )
 
 
 def pbroadcast(x, axis_name, root: int = 0):
     """Broadcast from ``root`` along ``axis_name``.
 
-    Counted as one collective; ``(n-1)/n`` bytes per rank.
+    Realized as ``repro`` realizes it: ``x`` masked to zero off the root,
+    then a psum.  Counted as one collective; ``(n-1)/n`` bytes per rank.
     """
     _record_collective("broadcast", x, axis_name, lambda n: (n - 1) / n)
-    return _meta_result(x)
+    return _per_leaf("pbroadcast", x, axis_name, int(root))

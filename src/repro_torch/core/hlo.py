@@ -56,6 +56,12 @@ dict/dataclass implementation is retained as
 columnar path is parity-tested against (``tests/test_hlo_golden.py``,
 ``tests/test_hlo_property.py``).
 
+The PyTorch port has no XLA: its compiled layer comes from a captured
+graph instead (:func:`scan_graph_collectives` / :func:`graph_collectives`),
+one row per instrumented-collective custom op, in the same buffer schema and
+HLO kind names.  That layer is the collectives the per-rank program calls,
+before any combiner: it is not post-XLA HLO.
+
 Per-region reduction of a buffer (compiled-layer rows for
 ``thicket.Frame``, tagged ``layer="hlo"``) lives in
 :class:`repro_torch.core.profiler.HloCollectiveProfiler`, which shares the
@@ -837,6 +843,134 @@ def _relax_factors(comp_names: list, edge_lines: list, entry: str) -> list:
             break
     final = {c: max(1, int(round(f))) if f > 0 else 0 for c, f in factors.items()}
     return [final[c] for c in comp_names]
+
+
+# ---------------------------------------------------------------------------
+# The port's compiled layer: collectives read from a captured graph
+# ---------------------------------------------------------------------------
+
+#: The instrumented collectives' custom ops (``torch.ops.repro_torch.<op>``)
+#: and the HLO kind each one is in ``repro``'s compiled programs: ``pmean``,
+#: ``pmin`` and ``pbroadcast`` are all-reduces there too (``repro`` realizes
+#: a broadcast as a masked psum).
+GRAPH_KINDS = {
+    "ppermute": "collective-permute",
+    "psum": "all-reduce",
+    "pmean": "all-reduce",
+    "pmax": "all-reduce",
+    "pmin": "all-reduce",
+    "pbroadcast": "all-reduce",
+    "all_gather": "all-gather",
+    "psum_scatter": "reduce-scatter",
+    "all_to_all": "all-to-all",
+}
+
+
+def _node_bytes(node) -> int:
+    val = node.meta.get("val", node.meta.get("example_value"))
+    return val.numel() * val.element_size()
+
+
+def graph_collectives(
+    graph,
+    *,
+    mesh,
+    total_devices: int,
+) -> HloCollectiveBuffer:
+    """Every ``repro_torch`` collective node of an FX ``graph`` (in graph
+    order) as an :class:`HloCollectiveBuffer`, one row a node.
+
+    The graph may come from ``make_fx`` or from a ``torch.compile``
+    backend; each node's arguments carry its axis key, static parameters
+    and region path (Dynamo drops ``record_function`` scopes, so the path
+    travels as an argument).  The row's ``op_name`` is
+    ``"commr::a/commr::b/<kind>"``, so the region is the innermost one, as
+    :func:`scan_hlo_collectives` attributes it.  Groups are
+    ``Topology.groups(axis)`` over ``mesh``; a permute counts as one group
+    of ``total_devices``, with ``n_pairs_per_src`` taken from the executed
+    perm's global pairs, as the HLO scanner takes it from
+    ``source_target_pairs``.  Bytes are per device, from the nodes' shapes.
+    """
+    from repro_torch.core.topology import Topology
+
+    buf = HloCollectiveBuffer()
+    topo = Topology(list(zip(mesh.axis_names, mesh.axis_sizes)))
+    for node in graph.nodes:
+        if node.op != "call_function":
+            continue
+        # an OpOverload (make_fx) names its schema; Dynamo keeps the packet
+        schema = getattr(node.target, "_schema", None)
+        qualified = schema.name if schema is not None else getattr(
+            node.target, "_qualified_op_name", "")
+        namespace, _, opname = qualified.partition("::")
+        if namespace != "repro_torch" or opname not in GRAPH_KINDS:
+            continue
+        kind = GRAPH_KINDS[opname]
+        names = tuple(node.args[1].split(","))
+        rows = topo.groups(names)  # row[j]: global rank of axis index j
+        path = [r for r in node.args[-1].split("/") if r]
+        op_name = "/".join([f"commr::{r}" for r in path] + [kind])
+        n_pairs_per_src = 1.0
+        if kind == "collective-permute":
+            perm = node.args[2]
+            srcs = rows[:, list(perm[0::2])].reshape(-1)
+            if srcs.size:
+                n_pairs_per_src = max(Counter(srcs.tolist()).values())
+            group_size, n_groups = total_devices or len(set(srcs.tolist())) or 1, 1
+        else:
+            n_groups, group_size = (int(d) for d in rows.shape)
+        buf.append_op(
+            name=node.name,
+            kind=kind,
+            result_bytes=_node_bytes(node),
+            operand_bytes=_node_bytes(node.args[0]),
+            group_size=group_size,
+            n_groups=n_groups,
+            region=_region_cached(op_name),
+            op_name=op_name,
+            n_pairs_per_src=n_pairs_per_src,
+        )
+    return buf
+
+
+def _to_meta(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to("meta")
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return tree
+
+
+def scan_graph_collectives(
+    fn,
+    *args,
+    mesh,
+    total_devices: int,
+) -> HloCollectiveBuffer:
+    """The port's compiled collective layer of ``fn(*args)``.
+
+    ``fn`` is the per-rank program (or a ``compat.shard_map`` over it);
+    it is captured with ``make_fx`` on meta copies of ``args`` inside
+    ``mesh``'s axis environment, which needs no process group and no
+    device: the collectives' custom ops trace through their fake
+    implementations.  :func:`graph_collectives` then reads the graph.
+
+    What the layer is: the collectives the program calls, one row per
+    custom-op call, **before** any combiner or scheduler pass.  It is not
+    post-XLA HLO: where XLA merges ops (``repro``'s beatnik folds three
+    ``reduce_norm`` psums into one all-reduce), this layer keeps each op.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core import compat
+
+    with compat.axis_env(mesh):
+        gm = make_fx(fn)(*_to_meta(args))
+    return graph_collectives(gm.graph, mesh=mesh, total_devices=total_devices)
 
 
 def parse_hlo_collectives(hlo_text: str, total_devices: Optional[int] = None) -> list:

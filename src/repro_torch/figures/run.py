@@ -5,7 +5,7 @@
     python -m repro_torch.figures.run --live [--out DIR]
     python -m repro_torch.figures.run --chaos [--out DIR]
 
-Without a mode flag it renders Table IV and figs 1–6 and 8 into
+Without a mode flag it renders Table IV and figs 1–8 into
 ``--results`` (default ``build/figure_results/``) and prints
 ``name,us_per_call,derived`` CSV rows.  The backend defaults to a
 ``REPRO_BACKEND`` setting, else torch on the CUDA card; without a card the
@@ -51,6 +51,7 @@ def run_figures(backend=None, results: str | None = None) -> list:
         fig3_amg_ranks,
         fig4_laghos_strong,
         fig8_halo_heatmap,
+        fig7_hlo_vs_traced,
         fig56_bw_msgrate,
         table4_metrics,
     )
@@ -60,8 +61,7 @@ def run_figures(backend=None, results: str | None = None) -> list:
         paper_data.RESULTS = results
     paper_data.profiles.cache_clear()  # this run's backend and cache
     paper_data.RETRY_LOG.events.clear()
-    # Figure 7 (HLO against traced) waits for the HLO producer, and the
-    # roofline table for the model stack's dry-run records.
+    # The roofline table waits for the model stack's dry-run records.
     modules = [
         ("table4", table4_metrics),
         ("fig1", fig1_kripke_scaling),
@@ -69,6 +69,7 @@ def run_figures(backend=None, results: str | None = None) -> list:
         ("fig3", fig3_amg_ranks),
         ("fig4", fig4_laghos_strong),
         ("fig56", fig56_bw_msgrate),
+        ("fig7", fig7_hlo_vs_traced),
         ("fig8", fig8_halo_heatmap),
     ]
     out, errors = [], []

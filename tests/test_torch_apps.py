@@ -310,11 +310,11 @@ def test_shard_map_takes_trees_of_specs():
 
 
 def test_oracles_take_real_tensors_and_the_traced_steps_refuse_them():
-    """The oracles run on real tensors without a collective; the traced
-    steps, which go through the instrumented collectives, refuse them
-    until real execution is ported."""
+    """The oracles run on real tensors without a collective; the
+    distributed steps, which go through the instrumented collectives,
+    refuse them without a process group of the mesh's ranks."""
     cfg = laghos.LaghosConfig(decomp=stencil.Decomp3D(2, 1, 1), nx=8, ny=8, n_steps=1)
     state = laghos.make_state(cfg, device="cpu")
     laghos.reference_steps(cfg)(state)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         laghos.run_steps(cfg, cfg.decomp.make_mesh())(state)

@@ -1,6 +1,6 @@
 """The port's figure drivers against the JAX package's ``benchmarks/``.
 
-Table IV, figs 1–6 and fig 8 run from both packages over the paper's
+Table IV and figs 1–8 run from both packages over the paper's
 experiments cut to their points of at most 64 ranks, both on NumPy and
 with the reference's system model (TPU v5e constants and system name)
 patched into the port, so ``meta_seconds`` agrees.  Every file a driver
@@ -31,6 +31,7 @@ DRIVERS = [
     "fig3_amg_ranks",
     "fig4_laghos_strong",
     "fig56_bw_msgrate",
+    "fig7_hlo_vs_traced",
     "fig8_halo_heatmap",
 ]
 

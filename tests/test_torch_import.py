@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 60, proc.stdout
+    assert n >= 63, proc.stdout
     imported = set(proc.stdout.split())
     for name in (
         "repro_torch.kernels.ssd_scan",
@@ -76,6 +76,9 @@ def test_every_port_module_imports_without_jax():
         "repro_torch.figures.run",
         "repro_torch.examples.quickstart",
         "repro_torch.examples.profile_comm_patterns",
+        "repro_torch.core.ranks",
+        "repro_torch.apps.multirank",
+        "repro_torch.figures.fig7_hlo_vs_traced",
     ):
         assert name in imported, proc.stdout
 
@@ -84,7 +87,7 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 61
+    assert len(sources) >= 64
     names = {os.path.relpath(p, _ROOT) for p in sources}
     assert {
         "src/repro_torch/kernels/mlstm_scan.py",
@@ -101,6 +104,9 @@ def test_no_source_imports_jax_or_repro():
         "src/repro_torch/ckpt/manager.py",
         "src/repro_torch/figures/run.py",
         "src/repro_torch/examples/quickstart.py",
+        "src/repro_torch/core/ranks.py",
+        "src/repro_torch/apps/multirank.py",
+        "src/repro_torch/figures/fig7_hlo_vs_traced.py",
     } <= names
     for path in sources:
         with open(path) as f:

@@ -90,11 +90,14 @@ def test_make_source_matches_jax():
 
 
 def test_real_tensors_are_not_executed_yet():
+    """Without a process group of the mesh's ranks, real tensors are not
+    executed: the driver and a bare collective raise (no single-rank
+    fallback)."""
     _, cfg = _configs(*CASES["fused-2x2x2"])
     q = kripke.make_source(cfg, global_shape=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         kripke.distributed_sweep(cfg, cfg.decomp.make_mesh())(q)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="inside shard_map"):
         coll.psum(torch.ones(3), "x")
 
 
