@@ -30,11 +30,16 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 7. attention — the flash and decode kernels against their plain versions on
    the card at olmo-1b's, deepseek-coder-33b's (GQA), gemma-2b's (MQA,
    head dim 256) and zamba2-1.2b's shared-block shapes, a decode-style
-   Sq < Sk case, an odd f32 case, ragged 1000-token tiles and head dim 64;
-   decode also at batch 1 over a 16000-key cache, at kv_len 1 and where
-   the last split of the keys holds one key (each decode row records its
-   split plan); each case's median time, its bound, the plain version's
-   time and ``F.scaled_dot_product_attention``'s;
+   Sq < Sk case, an odd f32 case, ragged 1000-token tiles and head dim 64,
+   and phase 16's shapes: GQA groups of 3 (granite-moe, D 64) and 7
+   (qwen2-vl with its 256-token vision prefix), bidirectional bf16 (the
+   encoder), cross-attention with Sq > Sk (16 keys, under one TMA tile)
+   and Sq < Sk, the reduced grok-1's head dim 32; decode also at batch 1
+   over a 16000-key cache, at kv_len 1, where the last split of the keys
+   holds one key, at granite's and qwen2-vl's GQA, and over 16 and 1024
+   cross-attention keys (each decode row records its split plan); each
+   case's median time, its bound, the plain version's time and
+   ``F.scaled_dot_product_attention``'s;
 8. serve — ``python -m repro_torch.serve_lm --arch olmo-1b --full`` at its
    published width and depth (16 layers, d 2048): 4 prompts of 1024 tokens,
    32 greedy tokens; exactly 16 flash and 496 decode launches; prefill and
@@ -124,7 +129,22 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    (3 ops, 3072 wire bytes) and of the four apps at 8 ranks:
    ``Frame.from_hlo`` on the card byte-equal to ``NumpyBackend`` with the
    segmented-reduce kernel launched, and fig 7's markdown and CSV equal on
-   the card and on NumPy.
+   the card and on NumPy;
+16. families — ``python -m repro_torch.serve_lm`` for each family the
+   earlier phases do not serve, 4 prompts of 1024 tokens and 32 greedy
+   tokens, one model at a time: seamless-m4t-medium (the encoder-decoder,
+   1024 source frames; served cold, then warm), minicpm3-4b (MLA),
+   granite-moe-3b-a800m (MoE) and qwen2-vl-7b (M-RoPE, 256 vision tokens
+   on a 16 x 16 grid) at their published width and depth, grok-1-314b
+   (MoE) reduced; exactly the flash and decode launches each makes (MLA
+   none); every attention call of a prefill and 4 decode steps held to its
+   plain version; prefill s, decode ms a step and tok/s, peak CUDA MB, the
+   card's work in a decode step and a prefill (``torch.profiler``) and so
+   the idle shares; each reduced config (MoE with ample capacity) against
+   the same model under ``ops.plain()`` and against teacher forcing, by the
+   rule, held in f32 and in bf16 where the rule is well posed (the plain
+   model stays inside it when every attention output moves by 1e-6,
+   ``rule_probe``; else bf16 is reported).
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -143,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -1043,6 +1064,16 @@ FLASH_CASES = [
     ("odd non-causal f32", 1, 2, 2, 33, 33, 32, False, torch.float32),
     ("ragged 1000-token tiles", 1, 8, 8, 1000, 1000, 128, True, torch.bfloat16),
     ("head dim 64", 2, 16, 16, 1024, 1024, 64, True, torch.bfloat16),
+    # phase 16's models: GQA groups of 3 and 7, bidirectional bf16 (the
+    # encoder), cross-attention with Sq > Sk (keys shorter than one TMA
+    # tile) and Sq < Sk, the reduced grok-1's head dim 32
+    ("granite-moe-3b GQA 24:8", 4, 24, 8, 1024, 1024, 64, True, torch.bfloat16),
+    ("qwen2-vl-7b GQA 28:4, vision prefix", 4, 28, 4, 1280, 1280, 128, True,
+     torch.bfloat16),
+    ("seamless encoder non-causal", 4, 16, 16, 1024, 1024, 64, False, torch.bfloat16),
+    ("cross Sq > Sk, 16 frames", 4, 16, 16, 1024, 16, 64, False, torch.bfloat16),
+    ("cross Sq < Sk non-causal", 2, 16, 16, 100, 1000, 64, False, torch.bfloat16),
+    ("grok-1 reduced head dim 32", 4, 4, 2, 1024, 1024, 32, True, torch.bfloat16),
 ]
 #: decode cases: (label, B, Hq, Hkv, S, kv_len, D, dtype)
 DECODE_CASES = [
@@ -1052,6 +1083,11 @@ DECODE_CASES = [
     ("olmo-1b batch 1, long cache", 1, 16, 16, 16384, 16000, 128, torch.bfloat16),
     ("olmo-1b kv_len 1", 4, 16, 16, 1056, 1, 128, torch.bfloat16),
     ("olmo-1b last split of 1 key", 4, 16, 16, 1056, 769, 128, torch.bfloat16),
+    ("granite-moe-3b GQA decode", 4, 24, 8, 1056, 1040, 64, torch.bfloat16),
+    ("qwen2-vl-7b GQA decode", 4, 28, 4, 1312, 1296, 128, torch.bfloat16),
+    ("seamless cross decode, 16 frames", 4, 16, 16, 16, 16, 64, torch.bfloat16),
+    ("seamless cross decode, 1024 frames", 4, 16, 16, 1024, 1024, 64,
+     torch.bfloat16),
 ]
 #: tests/test_kernels.py's tolerances: bf16 2e-2, f32 2e-5 (rtol = atol)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -1234,31 +1270,33 @@ def _logits_diff(got, want, scale: float) -> dict:
     }
 
 
-def end_to_end(model, res, prompts, n_new: int) -> dict:
+def end_to_end(model, res, prompts, n_new: int, inputs=None) -> dict:
     """Served logits against the same model on the plain attention (prefill
-    and the first 4 steps) and against teacher forcing (every step)."""
+    and the first 4 steps) and against teacher forcing (every step).
+    ``inputs`` are the stub embeddings the served run took (serve_lm's)."""
     from repro_torch.kernels import ops
 
-    n_prompt = prompts.shape[1]
+    inputs = inputs or {}
+    start = res.start
     out = {}
     with ops.plain():
-        logits, caches = model.prefill({"tokens": prompts}, s_max=n_prompt + n_new)
+        logits, caches = model.prefill({"tokens": prompts, **inputs}, s_max=start + n_new)
         scale = float(logits.abs().max())
         out["prefill vs plain"] = _logits_diff(res.prefill_logits, logits, scale)
         for t in range(min(4, n_new - 1)):
             tok = res.tokens[:, t : t + 1]
-            logits, caches = model.decode(caches, tok, n_prompt + t)
+            logits, caches = model.decode(caches, tok, start + t)
             diff = _logits_diff(res.decode_logits[t], logits, scale)
             out[f"decode {t} vs plain"] = diff
     del caches, logits
     seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
-    full, _ = model.train_logits({"tokens": seq})
+    full, _ = model.train_logits({"tokens": seq, **inputs})
     scale = float(full.abs().max())
-    want = full[:, n_prompt - 1]
+    want = full[:, start - 1]
     diff = _logits_diff(res.prefill_logits[:, 0], want, scale)
     out["prefill vs teacher forcing"] = diff
     for t, step in enumerate(res.decode_logits):
-        diff = _logits_diff(step[:, 0], full[:, n_prompt + t], scale)
+        diff = _logits_diff(step[:, 0], full[:, start + t], scale)
         out[f"decode {t} vs teacher forcing"] = diff
     return out
 
@@ -1271,16 +1309,9 @@ def _scores(q, k, mask) -> torch.Tensor:
     return torch.where(mask, s, -1e30)
 
 
-class ShadowAttention:
-    """Run every attention call of the model on the kernel and, on the same
-    inputs, on its plain version, and hold each row to the plain version
-    under the rule (rtol 2e-2, atol 0.02 * max|out|) unless its top two
-    scores tie below f32 resolution (``TIE_RTOL``).  The model goes on with
-    the kernel's output.  Fails the run on any other mismatch."""
-
-    def __init__(self):
-        self.calls = self.rows = self.tie_rows = self.tie_rows_differing = 0
-        self.max_abs_err = 0.0
+class AttentionSwap:
+    """While entered, the models' attention calls (``ops.flash_attention``,
+    ``ops.decode_attention``) go to this object's ``flash`` and ``decode``."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -1292,6 +1323,18 @@ class ShadowAttention:
 
     def __exit__(self, *exc):
         self._ops.flash_attention, self._ops.decode_attention = self._saved
+
+
+class ShadowAttention(AttentionSwap):
+    """Run every attention call of the model on the kernel and, on the same
+    inputs, on its plain version, and hold each row to the plain version
+    under the rule (rtol 2e-2, atol 0.02 * max|out|) unless its top two
+    scores tie below f32 resolution (``TIE_RTOL``).  The model goes on with
+    the kernel's output.  Fails the run on any other mismatch."""
+
+    def __init__(self):
+        self.calls = self.rows = self.tie_rows = self.tie_rows_differing = 0
+        self.max_abs_err = 0.0
 
     def flash(self, q, k, v, *, causal=True):
         from repro_torch.kernels import flash_attention as fa
@@ -1335,10 +1378,13 @@ class ShadowAttention:
             "calls", "rows", "tie_rows", "tie_rows_differing", "max_abs_err")}
 
 
-def seeded(cfg, batch: int, n_prompt: int, dtype=None) -> tuple:
-    """serve_lm's model (cast to ``dtype``) and prompts for ``cfg``, drawn
-    again from SEED: the same weights and prompts as ``serve_lm.main``."""
+def seeded_batch(cfg, batch: int, n_prompt: int, dtype=None, **stub) -> tuple:
+    """serve_lm's model (cast to ``dtype``), prompts and stub inputs for
+    ``cfg`` (``stub``: serve_lm's ``vision_tokens`` / ``source_frames``,
+    16 each by default), drawn again from SEED: the same weights, prompts
+    and embeddings as ``serve_lm.main``."""
     from repro_torch.models.model import build_model
+    from repro_torch.serve_lm import stub_inputs
 
     model = build_model(cfg, seed=SEED)
     if dtype is not None:
@@ -1347,6 +1393,13 @@ def seeded(cfg, batch: int, n_prompt: int, dtype=None) -> tuple:
     prompts = torch.randint(
         0, cfg.vocab, (batch, n_prompt), generator=gen, device="cuda"
     )
+    stub = {"vision_tokens": 16, "source_frames": 16, **stub}
+    return model, prompts, stub_inputs(cfg, batch, gen, **stub)
+
+
+def seeded(cfg, batch: int, n_prompt: int, dtype=None) -> tuple:
+    """serve_lm's model (cast to ``dtype``) and prompts for ``cfg``."""
+    model, prompts, _ = seeded_batch(cfg, batch, n_prompt, dtype)
     return model, prompts
 
 
@@ -2582,6 +2635,253 @@ def distributed_phase(rt, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serve the MLA, MoE, VLM and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+#: (arch, the published config?, stub sizes: serve_lm's --vision-tokens /
+#: --source-frames); the first is the smallest published model, served
+#: cold and then warm
+FAMILY_SERVES = [
+    ("seamless-m4t-medium", True, {"source_frames": 1024}),
+    ("minicpm3-4b", True, {}),
+    ("granite-moe-3b-a800m", True, {}),
+    ("qwen2-vl-7b", True, {"vision_tokens": 256}),
+    # about 628 GB of bf16 weights at the published size: reduced only
+    ("grok-1-314b", False, {}),
+]
+FAMILY_PROMPT, FAMILY_NEW = 1024, 32
+
+
+def family_launches(cfg, n_new: int) -> dict:
+    """The kernel launches a serve of ``cfg`` makes (prefill + n_new - 1
+    steps): flash for each attention of the prefill (an encoder-decoder's
+    encoder layers, then each decoder layer's self- and cross-attention),
+    decode for each of a step's; MLA runs on einsums, no kernel."""
+    steps = n_new - 1
+    if cfg.family in ("encdec", "audio"):
+        flash, per_step = cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    elif cfg.mla is not None:
+        flash = per_step = 0
+    else:
+        flash = per_step = cfg.n_layers
+    return {"flash_attention": flash, "decode_attention": per_step * steps,
+            "ssd_scan": 0, "mlstm_scan": 0}
+
+
+def _family_serve(arch: str, full: bool, stub: dict, cold: bool) -> dict:
+    """Serve one model through serve_lm.main; check its launches, tokens
+    and logits; hold every attention call of a prefill and 4 decode steps
+    of the same model to its plain version; time a decode step's card work;
+    hold the reduced config's bf16 decode to teacher forcing."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.serve_lm import serve
+
+    cfg = registry.get(arch) if full else registry.get(arch).reduced()
+    n_prompt, n_new = FAMILY_PROMPT, FAMILY_NEW
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", str(n_prompt),
+            "--new-tokens", str(n_new), "--seed", str(SEED)]
+    argv += ["--full"] if full else []
+    for key, n in stub.items():
+        argv += ["--" + key.replace("_", "-"), str(n)]
+    cold_s = None
+    if cold:
+        t = time.perf_counter()
+        cold_res = serve_lm.main(argv)
+        cold_s = time.perf_counter() - t
+        del cold_res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = serve_lm.main(argv)
+    main_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    want = family_launches(cfg, n_new)
+    if counts != want:
+        fail(f"families {arch}: kernel launches {counts}, expected {want}")
+    if res.tokens.shape != (4, n_new) or res.tokens.device.type != "cuda":
+        fail(f"families {arch}: tokens {tuple(res.tokens.shape)} on {res.tokens.device}")
+    if int(res.tokens.max()) >= cfg.vocab_padded or int(res.tokens.min()) < 0:
+        fail(f"families {arch}: a token outside the padded vocab")
+    if not all(bool(torch.isfinite(x).all())
+               for x in [res.prefill_logits, *res.decode_logits]):
+        fail(f"families {arch}: non-finite logits")
+    if res.prefill_logits.shape != (4, 1, cfg.vocab_padded):
+        fail(f"families {arch}: prefill logits {tuple(res.prefill_logits.shape)}")
+
+    model, prompts, inputs = seeded_batch(cfg, 4, n_prompt, **stub)
+    n_params = sum(p.numel() for p in model.parameters())
+    start = res.start
+    batch = {"tokens": prompts, **inputs}
+    with ShadowAttention() as shadow:
+        _, caches = model.prefill(batch, s_max=start + n_new)
+        for t in range(4):
+            _, caches = model.decode(caches, res.tokens[:, t : t + 1], start + t)
+    per_step = want["decode_attention"] // (n_new - 1)
+    if shadow.calls != want["flash_attention"] + 4 * per_step:
+        fail(f"families {arch}: the shadow saw {shadow.calls} attention calls")
+    # the card's work in a decode step and a prefill (torch.profiler), against
+    # the host clock of the served run: the idle shares
+    step = device_profile(lambda: model.decode(caches, res.tokens[:, 4:5], start + 4))
+    del caches
+    pre = device_profile(lambda: model.prefill(batch, s_max=start + n_new))
+    del model, batch, inputs
+    torch.cuda.empty_cache()
+
+    # the reduced config end to end (MoE with ample capacity: at the
+    # published factor a 4-token step drops tokens, in the reference too).
+    # f32 is held.  bf16 is held where the rule can tell right from wrong:
+    # where the plain model's own logits stay inside it when every attention
+    # output moves by an f32-level 1e-6 (``rule_probe``); elsewhere a bf16
+    # rounding flipped upstream (or a near-tie in the router) moves the
+    # logits past the rule whatever the kernels do, and bf16 is reported
+    rcfg = registry.get(arch).reduced()
+    if rcfg.moe is not None:
+        rcfg = replace(rcfg, moe=replace(rcfg.moe, capacity_factor=64.0))
+    e2e = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        rmodel, rprompts, rinputs = seeded_batch(rcfg, 4, 64, dtype)
+        rres = serve(rmodel, rprompts, 8, rinputs)
+        e2e[dtype] = end_to_end(rmodel, rres, rprompts, 8, rinputs)
+        if dtype == torch.bfloat16:
+            probe = rule_probe(rmodel, rprompts, 8, rinputs)
+        del rmodel, rres
+    bf16_held = all(d["holds"] for d in probe.values())
+    held = {"float32": e2e[torch.float32]}
+    if bf16_held:
+        held["bfloat16"] = e2e[torch.bfloat16]
+    for name, rule in held.items():
+        for label, diff in rule.items():
+            if not diff["holds"]:
+                fail(f"families {arch} (reduced, {name}): {label}: {diff}")
+
+    steps = n_new - 1
+    ms_step = res.decode_s / steps * 1e3
+    row = {
+        "arch": cfg.name,
+        "published": full,
+        "layers": cfg.n_layers,
+        "encoder_layers": cfg.n_enc_layers,
+        "d_model": cfg.d_model,
+        "params": n_params,
+        "batch": 4,
+        "prompt_len": n_prompt,
+        "new_tokens": n_new,
+        **stub,
+        "cold_main_s": cold_s,
+        "main_s": main_s,
+        "prefill_s": res.prefill_s,
+        "decode_s": res.decode_s,
+        "decode_tok_s": 4 * steps / res.decode_s,
+        "ms_per_decode_step": ms_step,
+        "decode_step_device_ms": step["device_ms"],
+        "decode_step_launches": step["launches"],
+        "decode_step_top": step["top"],
+        "decode_idle_share": 1 - step["device_ms"] / ms_step,
+        "prefill_device_ms": pre["device_ms"],
+        "prefill_launches": pre["launches"],
+        "prefill_top": pre["top"],
+        "prefill_idle_share": 1 - pre["device_ms"] / (res.prefill_s * 1e3),
+        "peak_cuda_mb": peak_mb,
+        "launches": counts,
+        "shadow": shadow.summary(),
+        "reduced_bf16_end_to_end": e2e[torch.bfloat16],
+        "reduced_f32_end_to_end": e2e[torch.float32],
+        "reduced_bf16_probe": probe,
+        "reduced_bf16_held": bf16_held,
+        "sample": res.tokens[0].tolist(),
+    }
+    log(
+        f"families {cfg.name} ({n_params} params, {cfg.n_layers} layers, d "
+        f"{cfg.d_model}{', ' + str(stub) if stub else ''}) 4x{n_prompt} + {n_new} "
+        f"tokens: prefill_s={res.prefill_s:.4f} decode_s={res.decode_s:.4f} "
+        f"decode_tok_s={row['decode_tok_s']:.1f} ms_per_step={ms_step:.3f} "
+        f"peak_cuda_MB={peak_mb:.1f} main_s={main_s:.2f} cold_main_s={cold_s} "
+        f"launches={counts}"
+    )
+    log(
+        f"families {cfg.name} card work (torch.profiler): decode step "
+        f"{step['device_ms']:.3f} ms in {step['launches']} launches (idle share "
+        f"{row['decode_idle_share']:.3f}), prefill {pre['device_ms']:.3f} ms in "
+        f"{pre['launches']} launches (idle share {row['prefill_idle_share']:.3f}); "
+        f"top decode kernels (ms) {step['top']}; top prefill kernels {pre['top']}"
+    )
+    log(f"families {cfg.name} shadow: {shadow.summary()}")
+    for name, rule in (("bf16", e2e[torch.bfloat16]), ("bf16 probe", probe),
+                       ("f32", e2e[torch.float32])):
+        worst = max(rule.items(), key=lambda kv: kv[1]["max_abs_err"])
+        n_hold = sum(d["holds"] for d in rule.values())
+        log(f"families {cfg.name} reduced {name} rule: {n_hold}/{len(rule)} hold; "
+            f"worst {worst[0]}: {worst[1]}")
+    log(f"families {cfg.name}: reduced bf16 {'held' if bf16_held else 'reported'}, "
+        "f32 held")
+    return row
+
+
+#: the relative change the rule probe puts on every attention output: an
+#: f32-level difference, below what a kernel route differs from its plain
+#: version by (the bf16 flash's P carries about 16 bits)
+PROBE_NOISE = 1e-6
+
+
+class NoisyAttention(AttentionSwap):
+    """Run every attention call on its plain version in f32 and move the
+    output by a relative ``PROBE_NOISE`` (a seeded normal draw) before the
+    rounding to the model's dtype."""
+
+    def __init__(self):
+        self.gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def _moved(self, out: torch.Tensor, dtype) -> torch.Tensor:
+        noise = torch.randn(out.shape, generator=self.gen, device=out.device)
+        return (out * (1 + PROBE_NOISE * noise)).to(dtype)
+
+    def flash(self, q, k, v, *, causal=True):
+        from repro_torch.kernels import flash_attention as fa
+
+        out = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        return self._moved(out, q.dtype)
+
+    def decode(self, q, k, v, kv_len):
+        from repro_torch.kernels import decode_attention as dec
+
+        out = dec.decode_attention_plain(q.float(), k.float(), v.float(), kv_len)
+        return self._moved(out, q.dtype)
+
+
+def rule_probe(model, prompts, n_new: int, inputs) -> dict:
+    """``end_to_end`` of the plain model against itself with every attention
+    output moved by ``PROBE_NOISE`` (``NoisyAttention``): where this breaks
+    the rule, the rule cannot hold a kernel to the plain version end to
+    end on this model, however right the kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve_lm import serve
+
+    with ops.plain():
+        ref = serve(model, prompts, n_new, inputs)
+    with NoisyAttention():
+        return end_to_end(model, ref, prompts, n_new, inputs)
+
+
+def families_phase() -> dict:
+    t = time.perf_counter()
+    rows = [
+        _family_serve(arch, full, stub, cold=i == 0)
+        for i, (arch, full, stub) in enumerate(FAMILY_SERVES)
+    ]
+    launches = {}
+    for row in rows:
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    seconds = time.perf_counter() - t
+    log(f"families: {len(rows)} models in {seconds:.1f} s; launches {launches}")
+    return {"models": rows, "launches": launches, "seconds": seconds}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2697,6 +2997,10 @@ def main() -> None:
     log("distributed path kernel launches: "
         f"segment_reduce={distributed['segment_reduce_launches']}")
 
+    # 16. serve the MLA, MoE, VLM and encoder-decoder families; attention
+    # launches counted from here on
+    families = families_phase()
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -2712,11 +3016,13 @@ def main() -> None:
         "library_ms": main_case["library_ms"],
     }
     entries = [entry]
-    # olmo-1b's shapes and its path's launches for the attention kernels,
-    # zamba2-1.2b's for the SSD scan, xlstm-1.3b's for the mLSTM scan
-    model_kernels = ((fa, flash_rows, serve), (dec, decode_rows, serve),
-                     (ssd, ssd_rows, zamba2), (ms, mlstm_rows, xlstm))
-    for mod, rows, path in model_kernels:
+    # olmo-1b's shapes for the attention kernels, with the launches of its
+    # path and phase 16's; zamba2-1.2b's for the SSD scan, xlstm-1.3b's for
+    # the mLSTM scan
+    model_kernels = ((fa, flash_rows, (serve, families)),
+                     (dec, decode_rows, (serve, families)),
+                     (ssd, ssd_rows, (zamba2,)), (ms, mlstm_rows, (xlstm,)))
+    for mod, rows, paths in model_kernels:
         name = mod.__name__.rsplit(".", 1)[-1]
         main_row = rows[0]  # the main path's shape
         entries.append(
@@ -2725,7 +3031,7 @@ def main() -> None:
                 "route": "cuda",
                 "source": mod.SOURCE,
                 "replaces": REPLACES[name],
-                "launches": path["launches"][name],
+                "launches": sum(path["launches"][name] for path in paths),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"],
                 "plain_ms": main_row["plain_ms"],
@@ -2757,6 +3063,7 @@ def main() -> None:
         "apps": apps,
         "sweeps": sweeps,
         "distributed": distributed,
+        "families": families,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

@@ -20,7 +20,8 @@ Every reduction below runs on the backend the command line picks (torch on
 the card by default, ``--device cpu`` or ``--backend numpy`` on the host);
 profiles are byte-identical on every backend.  The JAX package's
 quickstart also profiles a compiled sharded LM train step; that section
-waits for the port's HLO producer.
+waits for the port's sharded training, whose compiled collectives the
+port's graph capture would then read.
 """
 
 import tempfile

@@ -110,33 +110,54 @@ def tensor_from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _put(state: dict, prefix: str, sub: dict, layer=None) -> None:
+    """Add ``sub``'s leaves to ``state`` under ``prefix``; with ``layer``,
+    layer ``layer`` of each stacked leaf."""
+    for k, v in sub.items():
+        name = f"{prefix}.{k}"
+        if isinstance(v, dict):
+            _put(state, name, v, layer)
+        else:
+            state[name] = tensor_from_numpy(v if layer is None else v[layer])
+
+
 def lm_params_from_numpy(cfg, tree: dict) -> dict:
     """The port's ``LM`` state dict from the reference's parameter tree.
 
     ``tree`` is the reference ``LM``'s parameters as nested dicts of NumPy
     arrays (``{"embed": {...}, "groups": (stacked, ...)}``, and a hybrid
     model's ``"shared"`` block); each group's leading ``layers`` axis is
-    unstacked into one module per layer, and the shared block's ``down``
-    stays stacked by invocation.  Load the result with ``LM.load_state_dict``.
+    unstacked into one module per layer (MoE and MLA leaves among them), and
+    the shared block's ``down`` stays stacked by invocation.  Load the result
+    with ``LM.load_state_dict``.
     """
     state = {}
-
-    def put(prefix: str, sub: dict, layer=None) -> None:
-        for k, v in sub.items():
-            name = f"{prefix}.{k}"
-            if isinstance(v, dict):
-                put(name, v, layer)
-            else:
-                state[name] = tensor_from_numpy(v if layer is None else v[layer])
-
-    put("embed", tree["embed"])
+    _put(state, "embed", tree["embed"])
     if "shared" in tree:
-        put("shared", tree["shared"])
+        _put(state, "shared", tree["shared"])
     groups = tree["groups"]
     plan = layer_plan(cfg)
     if len(groups) != len(plan):
         raise ValueError(f"{len(groups)} layer groups given, the plan has {len(plan)}")
     for gi, ((_, n), stacked) in enumerate(zip(plan, groups)):
         for i in range(n):
-            put(f"groups.{gi}.{i}", stacked, i)
+            _put(state, f"groups.{gi}.{i}", stacked, i)
+    return state
+
+
+def encdec_params_from_numpy(cfg, tree: dict) -> dict:
+    """The port's ``EncDec`` state dict from the reference's parameter tree.
+
+    ``tree`` is the reference ``EncDec``'s parameters as nested dicts of
+    NumPy arrays: ``embed``, ``enc`` and ``dec`` (stacked on a leading
+    ``layers`` axis, unstacked here into one module per layer) and
+    ``enc_norm``.  Load the result with ``EncDec.load_state_dict``.
+    """
+    state = {}
+    _put(state, "embed", tree["embed"])
+    if "enc_norm" in tree:
+        state["enc_norm"] = tensor_from_numpy(tree["enc_norm"])
+    for key, n in (("enc", cfg.n_enc_layers), ("dec", cfg.n_layers)):
+        for i in range(n):
+            _put(state, f"{key}.{i}", tree[key], i)
     return state

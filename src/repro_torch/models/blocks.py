@@ -1,8 +1,7 @@
-"""Transformer building blocks of the dense GQA path: norms, rotary
-embeddings, attention (MHA / GQA / MQA), gated FFNs, embeddings.
+"""Transformer building blocks: norms, rotary embeddings (RoPE and Qwen2-VL's
+M-RoPE), attention (MHA / GQA / MQA / MLA), gated FFNs, embeddings.
 
-The port of ``repro/models/blocks.py`` for the dense family.  Conventions
-are the reference's:
+The port of ``repro/models/blocks.py``.  Conventions are the reference's:
 
   * activations are ``cfg.dtype`` (bf16); softmax/norm statistics in f32;
   * parameters are read as ``p["name"]`` from a
@@ -15,7 +14,12 @@ Attention goes through :mod:`repro_torch.kernels.ops`: the flash kernel for
 prefill and the teacher-forced forward, the decode kernel over the
 preallocated cache.  The reference computes the same function with XLA
 (``sdpa``), which rounds the probabilities to bf16 before P·V; the kernels
-keep them in f32.  MLA and M-RoPE wait for a later slice.
+keep them in f32.
+
+MLA (MiniCPM3's latent KV cache) stays plain ``torch.einsum``, as the
+reference's is plain einsum: its absorbed form scores q against one shared
+latent "head" whose q·k width (``kv_lora + rope_dim``) differs from its
+value width (``kv_lora``), which the flash and decode kernels do not take.
 """
 
 from __future__ import annotations
@@ -77,6 +81,23 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
     freqs = rope_freqs(head_dim, theta, positions.device)
     ang = positions[..., None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections) -> tuple:
+    """M-RoPE (Qwen2-VL): positions3 (3, B, S) for (t, h, w) -> cos/sin
+    (B, S, head_dim//2); the rotary half-dims are split into ``sections``
+    (summing to head_dim//2), each rotating with its own position stream."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {head_dim // 2}")
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    ang = positions3[..., None].float() * freqs  # (3, B, S, half)
+    cos, sin, start = [], [], 0
+    for i, sec in enumerate(sections):
+        cos.append(torch.cos(ang[i, ..., start : start + sec]))
+        sin.append(torch.sin(ang[i, ..., start : start + sec]))
+        start += sec
+    return torch.cat(cos, dim=-1), torch.cat(sin, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -166,6 +187,114 @@ def attn_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
     v[:, :, pos : pos + 1] = v_new.to(v.dtype)
     out = ops.decode_attention(q, k, v, pos + 1)
     return _out_proj(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-V2 style latent KV)
+# ---------------------------------------------------------------------------
+
+
+def mla_defs(cfg) -> dict:
+    m = cfg.mla
+    d = cfg.d_model
+    h = cfg.n_heads
+    return {
+        "wdq": ParamDef((d, m.q_lora), ("embed", None)),
+        "q_norm": ParamDef((m.q_lora,), (None,), init="zeros"),
+        "wuq": ParamDef((m.q_lora, h, m.nope_dim + m.rope_dim), (None, "heads", None)),
+        "wdkv": ParamDef((d, m.kv_lora), ("embed", None)),
+        "kv_norm": ParamDef((m.kv_lora,), (None,), init="zeros"),
+        "wuk": ParamDef((m.kv_lora, h, m.nope_dim), (None, "heads", None)),
+        "wuv": ParamDef((m.kv_lora, h, m.v_dim), (None, "heads", None)),
+        "wkr": ParamDef((d, m.rope_dim), ("embed", None)),
+        "wo": ParamDef((h, m.v_dim, d), ("heads", None, "embed")),
+    }
+
+
+def mla_cache_shape(cfg, batch: int, s_max: int) -> dict:
+    m = cfg.mla
+    return {
+        "c_kv": ((batch, s_max, m.kv_lora), ("batch", "kv_seq", None)),
+        "k_rope": ((batch, s_max, m.rope_dim), ("batch", "kv_seq", None)),
+    }
+
+
+def _mla_q(cfg, p, x, cos, sin) -> tuple:
+    m = cfg.mla
+    cq = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wdq"]), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bhsk", cq, p["wuq"])
+    return q[..., : m.nope_dim], apply_rope(q[..., m.nope_dim :], cos, sin)
+
+
+def _mla_latents(cfg, p, x, cos, sin) -> tuple:
+    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wdkv"]), p["kv_norm"])
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["wkr"])
+    k_rope = apply_rope(k_rope[:, None], cos, sin)[:, 0]  # (B, S, rope)
+    return c_kv, k_rope
+
+
+def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask) -> torch.Tensor:
+    """Absorbed-matrix MLA attention over the latent cache.
+
+    q_nope (B,H,Sq,nope), q_rope (B,H,Sq,rope); c_kv (B,Sk,kv_lora),
+    k_rope (B,Sk,rope); ``mask`` (Sq, Sk), True = attend, or None.  The
+    scores are f32 products of the operands (the reference's
+    ``preferred_element_type``); the probabilities are rounded to the
+    cache's dtype before ``probs · c_kv``, as the reference rounds them.
+    """
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.nope_dim + m.rope_dim)
+    # absorb W_uk into q: (B, H, Sq, kv_lora)
+    q_eff = torch.einsum("bhsk,rhk->bhsr", q_nope, p["wuk"])
+    scores = torch.einsum("bhsr,btr->bhst", q_eff.float(), c_kv.float())
+    scores = scores + torch.einsum("bhsk,btk->bhst", q_rope.float(), k_rope.float())
+    scores = scores * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhst,btr->bhsr", probs, c_kv)
+    out = torch.einsum("bhsr,rhv->bhsv", ctx, p["wuv"])
+    return torch.einsum("bhsv,hvd->bsd", out, p["wo"])
+
+
+def _causal_mask(sq: int, device) -> torch.Tensor:
+    pos = torch.arange(sq, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def mla_train(cfg, p, x, cos, sin) -> torch.Tensor:
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
+    c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
+    mask = _causal_mask(x.shape[1], x.device)
+    return mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask)
+
+
+def mla_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
+    sq = x.shape[1]
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
+    c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
+    out = mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, _causal_mask(sq, x.device))
+    pad = (0, 0, 0, s_max - sq)
+    return out, {"c_kv": F.pad(c_kv, pad), "k_rope": F.pad(k_rope, pad)}
+
+
+def mla_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
+    """x (B,1,D); cache c_kv (B,S_max,kv_lora) and k_rope (B,S_max,rope),
+    written in place at ``pos``.
+
+    The reference masks the cache to keys ``<= pos``; attending over the
+    first ``pos + 1`` positions is the same function (a masked key's
+    probability is exactly zero).
+    """
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
+    c_new, kr_new = _mla_latents(cfg, p, x, cos, sin)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, pos : pos + 1] = c_new.to(c_kv.dtype)
+    k_rope[:, pos : pos + 1] = kr_new.to(k_rope.dtype)
+    out = mla_attend(
+        cfg, p, q_nope, q_rope, c_kv[:, : pos + 1], k_rope[:, : pos + 1], None
+    )
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

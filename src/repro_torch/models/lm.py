@@ -1,30 +1,35 @@
-"""Decoder-only LM: the dense, hybrid and ssm families' serving path and forward.
+"""Decoder-only LM assembly for every decoder-only family.
 
-The port of ``repro/models/lm.py`` for families ``dense`` (pre-norm GQA/MQA
-attention + gated FFN), ``hybrid`` (zamba2: a Mamba-2 backbone with one
-shared attention + FFN block after every ``shared_attn_every`` layers but
-the last group, run at width ``2 d`` on the concatenation with the initial
-embedding, each invocation with its own down-projection) and ``ssm``
-(xlstm: mLSTM layers only, no attention).  The reference
-stacks each layer group's parameters on a ``layers`` axis and drives it with
-``lax.scan``; here a group is an ``nn.ModuleList`` of per-layer modules and
-the scan is a Python loop.  The KV caches and the Mamba states are
-preallocated per layer and the Mamba and mLSTM states come from the
-prefill; all are updated in place by :meth:`LM.decode` (the reference
-returns updated copies).
+The port of ``repro/models/lm.py``.  Families:
+
+  dense / vlm    pre-norm attention (GQA/MQA or MLA) + gated FFN; the VLM
+                 (qwen2-vl) puts a stub vision prefix before the prompt and
+                 rotates with M-RoPE
+  moe            pre-norm attention + GShard MoE FFN
+  ssm            xLSTM mLSTM blocks (no FFN, assigned d_ff = 0)
+  hybrid         zamba2: a Mamba-2 backbone with one shared attention + FFN
+                 block after every ``shared_attn_every`` layers but the last
+                 group, run at width ``2 d`` on the concatenation with the
+                 initial embedding, each invocation with its own
+                 down-projection
+
+The reference stacks each layer group's parameters on a ``layers`` axis and
+drives it with ``lax.scan``; here a group is an ``nn.ModuleList`` of
+per-layer modules and the scan is a Python loop.  The KV caches (MLA's
+latent caches among them) are preallocated per layer and the Mamba and
+mLSTM states come from the prefill; all are updated in place by
+:meth:`LM.decode` (the reference returns updated copies).
 
 Every phase is wrapped in a communication region, as in the reference:
-``embed``, ``attn``, ``mlp``, ``ssm``, ``shared_attn``, ``lm_head``.
-Without a device mesh the reference's ``shard_act`` is the identity, so the
-port leaves it out.
-
-Other families and kinds raise ``NotImplementedError`` naming the slice of
-the port that brings them: ``moe``, MLA, the VLM's M-RoPE and the
-encoder-decoder.
+``embed``, ``attn``, ``mlp``, ``moe``, ``ssm``, ``shared_attn``,
+``lm_head``.  Without a device mesh the reference's ``shard_act`` is the
+identity, so the port leaves it out.  The encoder-decoder family is
+:mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -35,6 +40,7 @@ from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.regions import comm_region
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.params import (
     ParamDef,
@@ -44,56 +50,43 @@ from repro_torch.models.params import (
     unstack,
 )
 
-#: the slice of the port that brings each family this one cannot run
-_LATER = {
-    "moe": "the MoE slice (attn_moe layers)",
-    "vlm": "the VLM slice (M-RoPE and the vision prefix)",
-    "encdec": "the encoder-decoder slice",
-    "audio": "the encoder-decoder slice",
-}
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    later = _LATER.get(cfg.family, f"no slice yet (family {cfg.family!r})")
-    if cfg.mla is not None:
-        later = "the MLA slice (minicpm3's latent KV cache)"
-    elif cfg.family in ("dense", "hybrid", "ssm"):
-        return
-    raise NotImplementedError(f"{cfg.name}: the port runs it from {later}")
-
-
 # ---------------------------------------------------------------------------
 # Layer definitions
 # ---------------------------------------------------------------------------
 
 
 def layer_defs(cfg, kind: str) -> dict:
-    if kind == "attn_ffn":
+    if kind in ("attn_ffn", "attn_moe"):
         d = {
             "norm1": B.norm_def(cfg),
-            "attn": B.attn_defs(cfg),
+            "attn": B.mla_defs(cfg) if cfg.mla is not None else B.attn_defs(cfg),
             "norm2": B.norm_def(cfg),
-            "ffn": B.ffn_defs(cfg),
         }
+        if kind == "attn_ffn":
+            d["ffn"] = B.ffn_defs(cfg)
+        else:
+            d["moe"] = MOE.moe_defs(cfg)
     elif kind == "mamba":
         d = {"norm1": B.norm_def(cfg), "ssm": M.mamba_defs(cfg)}
     elif kind == "mlstm":
         d = {"norm1": B.norm_def(cfg), "ssm": X.mlstm_defs(cfg)}
     else:
-        raise NotImplementedError(f"layer kind {kind!r} comes with a later slice")
+        raise ValueError(kind)
     return {k: v for k, v in d.items() if v is not None}
 
 
 def layer_plan(cfg) -> list:
     """[(kind, n_layers)]; hybrid: mamba groups of ``shared_attn_every``."""
-    check_supported(cfg)
+    if cfg.family in ("dense", "vlm"):
+        return [("attn_ffn", cfg.n_layers)]
+    if cfg.family == "moe":
+        return [("attn_moe", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("mlstm", cfg.n_layers)]
     if cfg.family == "hybrid":
         n, k = cfg.n_layers, cfg.shared_attn_every
         return [("mamba", min(k, n - i)) for i in range(0, n, k)]
-    return [("attn_ffn", cfg.n_layers)]
+    raise ValueError(f"{cfg.name}: no decoder-only plan for family {cfg.family!r}")
 
 
 def _shared_block_cfg(cfg):
@@ -147,14 +140,32 @@ class Ctx:
     s_max: int = 0  # cache length
 
 
-def make_rope(cfg, positions: torch.Tensor) -> tuple:
-    """positions (S,) or (B,S) -> cos/sin."""
+def make_rope(cfg, positions: torch.Tensor, vision_grid: Optional[tuple] = None):
+    """positions (S,) or (B,S) -> cos/sin; M-RoPE builds 3 position streams.
+
+    ``vision_grid`` is ``(v, rows, cols)`` of a vision prefix: its tokens
+    take (t = 0, h, w) grid coordinates, and text continues with
+    t = h = w = position.
+    """
     if cfg.family == "hybrid":
         # the only attention is the shared block at width 2*d
         hd = 2 * cfg.d_model // cfg.n_heads
+    elif cfg.mla is not None:
+        hd = cfg.mla.rope_dim
     else:
         hd = cfg.head_dim
-    return B.rope_angles(positions, hd, cfg.rope_theta)
+    if cfg.mrope_sections is None:
+        return B.rope_angles(positions, hd, cfg.rope_theta)
+    if positions.dim() == 1:
+        positions = positions[None]
+    p3 = torch.stack([positions] * 3)  # (3, B, S): t, h, w
+    if vision_grid is not None:
+        v, _, cols = vision_grid
+        grid = torch.arange(v, dtype=positions.dtype, device=positions.device)
+        p3[0, :, :v] = 0
+        p3[1, :, :v] = grid // cols
+        p3[2, :, :v] = grid % cols
+    return B.mrope_angles(p3, hd, cfg.rope_theta, cfg.mrope_sections)
 
 
 # ---------------------------------------------------------------------------
@@ -169,17 +180,35 @@ _RECURRENT = {
 }
 
 
-def layer_train(cfg, kind: str, p, x, ctx: Ctx):
+def _attention(cfg) -> tuple:
+    """(train, prefill, decode) of a layer's attention: MLA or GQA."""
+    if cfg.mla is not None:
+        return B.mla_train, B.mla_prefill, B.mla_decode
+    return B.attn_train, B.attn_prefill, B.attn_decode
+
+
+def _ffn_half(cfg, kind: str, p, x) -> tuple:
+    """The gated FFN (``attn_ffn``) or MoE (``attn_moe``) half of a layer:
+    (x, the layer's aux loss; 0.0 without experts)."""
+    if kind == "attn_moe":
+        with comm_region("moe"):
+            y, aux = MOE.moe_ffn(cfg, p["moe"], B.norm(cfg, p.get("norm2"), x))
+            return x + y, aux
+    with comm_region("mlp"):
+        return x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x)), 0.0
+
+
+def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
+    """Returns (x, the layer's aux loss) for one layer."""
     if kind in _RECURRENT:
         train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            return x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
+            return x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x)), 0.0
+    train, _, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
-        x = x + B.attn_train(cfg, p["attn"], h, ctx.cos, ctx.sin)
-    with comm_region("mlp"):
-        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
-    return x
+        x = x + train(cfg, p["attn"], h, ctx.cos, ctx.sin)
+    return _ffn_half(cfg, kind, p, x)
 
 
 def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
@@ -191,13 +220,12 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
                 cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
             )
             return x + h, cache
+    _, prefill, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
-        h, cache = B.attn_prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
+        h, cache = prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
         x = x + h
-    with comm_region("mlp"):
-        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
-    return x, cache
+    return _ffn_half(cfg, kind, p, x)[0], cache
 
 
 def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
@@ -206,13 +234,12 @@ def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
         with comm_region("ssm"):
             h, cache = decode(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), cache)
             return x + h, cache
+    _, _, decode = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
-        h, cache = B.attn_decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
+        h, cache = decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
         x = x + h
-    with comm_region("mlp"):
-        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
-    return x, cache
+    return _ffn_half(cfg, kind, p, x)[0], cache
 
 
 def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
@@ -220,6 +247,8 @@ def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
         return M.mamba_state_shape(cfg, batch)
     if kind == "mlstm":
         return X.mlstm_state_shape(cfg, batch)
+    if cfg.mla is not None:
+        return B.mla_cache_shape(cfg, batch, s_max)
     return B.attn_cache_shape(cfg, batch, s_max)
 
 
@@ -325,13 +354,27 @@ class LM(nn.Module):
         """Whether the shared block runs after group ``gi``."""
         return self.cfg.family == "hybrid" and gi < len(self.plan) - 1
 
-    # -- embedding ---------------------------------------------------------
+    # -- embedding (with the VLM's vision prefix) --------------------------
     def _embed(self, batch: dict) -> torch.Tensor:
         with comm_region("embed"):
-            return B.embed_tokens(self.cfg, self.embed, batch["tokens"])
+            x = B.embed_tokens(self.cfg, self.embed, batch["tokens"])
+            if self.cfg.family == "vlm" and "vision_embeds" in batch:
+                x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+            return x
 
     def _positions(self, seq: int) -> torch.Tensor:
         return torch.arange(seq, dtype=torch.int32, device=self.device)
+
+    def _vision_grid(self, batch: dict) -> Optional[tuple]:
+        """(v, rows, cols) of the vision prefix's grid, or None."""
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            v = batch["vision_embeds"].shape[1]
+            g = int(math.sqrt(v))
+            return (v, g, max(1, v // g))
+        return None
+
+    def _rope(self, batch: dict, seq: int) -> tuple:
+        return make_rope(self.cfg, self._positions(seq), self._vision_grid(batch))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         with comm_region("lm_head"):
@@ -340,26 +383,35 @@ class LM(nn.Module):
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
     def train_logits(self, batch: dict) -> tuple:
-        """Logits over every position (forward only) and the aux loss."""
+        """Logits over every position (forward only) and the summed aux loss.
+
+        A VLM's logits cover the vision prefix too.
+        """
         cfg = self.cfg
         x = self._embed(batch)
-        cos, sin = make_rope(cfg, self._positions(x.shape[1]))
+        cos, sin = self._rope(batch, x.shape[1])
         ctx = Ctx(cos=cos, sin=sin)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x0 = x
         for gi, ((kind, _), layers) in enumerate(zip(self.plan, self.groups)):
             for lp in layers:
-                x = layer_train(cfg, kind, lp, x, ctx)
+                x, a = layer_train(cfg, kind, lp, x, ctx)
+                aux = aux + a
             if self._shared_after(gi):
                 x = shared_train(cfg, self.shared, x, x0, gi, ctx)
-        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(x), aux
 
     # -- serving -----------------------------------------------------------
     @torch.no_grad()
     def prefill(self, batch: dict, s_max: int) -> tuple:
-        """Logits of the last prompt position and the caches (padded to s_max)."""
+        """Logits of the last prompt position and the caches (padded to s_max).
+
+        ``s_max`` counts a VLM's vision prefix: the prompt's positions start
+        after it.
+        """
         cfg = self.cfg
         x = self._embed(batch)
-        cos, sin = make_rope(cfg, self._positions(x.shape[1]))
+        cos, sin = self._rope(batch, x.shape[1])
         ctx = Ctx(cos=cos, sin=sin, s_max=s_max)
         caches = []
         x0 = x

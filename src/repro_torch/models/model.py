@@ -2,17 +2,15 @@
 
 from __future__ import annotations
 
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 
-def build_model(cfg, *, device=None, generator=None, seed: int = 0) -> LM:
-    """The model of ``cfg`` with seeded random parameters on ``device``.
+def build_model(cfg, *, device=None, generator=None, seed: int = 0):
+    """The model of ``cfg`` (an ``EncDec`` for the encoder-decoder
+    families, else an ``LM``) with seeded random parameters on ``device``.
 
-    ``device`` defaults to the CUDA card.  Encoder-decoder families raise
-    ``NotImplementedError``: they come with a later slice of the port.
+    ``device`` defaults to the CUDA card.
     """
-    if cfg.family in ("encdec", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model comes with a later slice"
-        )
-    return LM(cfg, device=device, generator=generator, seed=seed)
+    cls = EncDec if cfg.family in ("encdec", "audio") else LM
+    return cls(cfg, device=device, generator=generator, seed=seed)

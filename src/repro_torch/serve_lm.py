@@ -1,4 +1,4 @@
-"""Serve a dense, hybrid or ssm LM: batched prefill, then greedy decode.
+"""Serve any registered architecture: batched prefill, then greedy decode.
 
 The port's counterpart of ``examples/serve_lm.py``: the same flags, the same
 greedy argmax over the padded logits and the same prefill-then-decode loop
@@ -7,18 +7,22 @@ hand-written flash kernel (prefill) and decode kernel (every step); a
 hybrid model's (zamba2's) Mamba-2 layers run the hand-written SSD scan at
 prefill and an O(1) recurrence at each decode step; an ssm model's
 (xlstm's) mLSTM layers run the hand-written mLSTM scan at prefill and an
-O(1) recurrence at each decode step.
+O(1) recurrence at each decode step.  MLA (minicpm3) and the MoE FFN
+(granite-moe, grok-1) are plain einsum, as in the reference.  The VLM
+(qwen2-vl) takes ``--vision-tokens`` stub vision embeddings before the
+prompt; the encoder-decoder (seamless-m4t) encodes ``--source-frames`` stub
+frame embeddings and cross-attends to them at every step.
 
     python -m repro_torch.serve_lm --arch olmo-1b                # on the card
     python -m repro_torch.serve_lm --arch olmo-1b --device cpu   # on the host
     python -m repro_torch.serve_lm --arch zamba2-1.2b --full \\
         --prompt-len 1024 --new-tokens 32                        # published width
-    python -m repro_torch.serve_lm --arch xlstm-1.3b --full
+    python -m repro_torch.serve_lm --arch seamless-m4t-medium --device cpu
 
-Without ``--full`` the config is the reduced smoke variant.  Parameters and
-prompts are random, drawn from ``--seed`` by ``torch.Generator``s on the
-device.  Without a CUDA card the default device raises; pass
-``--device cpu``.
+Without ``--full`` the config is the reduced smoke variant.  Parameters,
+prompts and the stub embeddings are random, drawn from ``--seed`` by
+``torch.Generator``s on the device.  Without a CUDA card the default device
+raises; pass ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.models.lm import LM, resolve_device
+from repro_torch.models.lm import resolve_device
 from repro_torch.models.model import build_model
 
 
@@ -43,6 +47,7 @@ class ServeResult:
     decode_logits: list = field(default_factory=list)  # per step (B, 1, V)
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    start: int = 0  # positions the prefill filled; decode step t writes start + t
 
 
 def _sync(device: torch.device) -> None:
@@ -54,27 +59,33 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1)[:, None]
 
 
-def serve(model: LM, prompts: torch.Tensor, new_tokens: int) -> ServeResult:
+def serve(model, prompts: torch.Tensor, new_tokens: int, inputs=None) -> ServeResult:
     """Prefill ``prompts`` (B, P) and decode ``new_tokens`` greedy tokens.
 
-    The caches hold ``P + new_tokens`` positions; decode step ``t`` writes
-    position ``P + t``.  Host times end in a device synchronize.
+    ``inputs`` adds the stub embeddings to the batch: ``vision_embeds``
+    (B, v, d), a prefix of v positions before the prompt, or ``frames``
+    (B, S_src, d) for the encoder.  The caches hold ``v + P + new_tokens``
+    positions; decode step ``t`` writes position ``v + P + t``.  Host times
+    end in a device synchronize.
     """
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    batch = {"tokens": prompts, **(inputs or {})}
     device = prompts.device
-    n_prompt = prompts.shape[1]
+    start = prompts.shape[1]
+    if "vision_embeds" in batch:
+        start += batch["vision_embeds"].shape[1]
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = model.prefill({"tokens": prompts}, s_max=n_prompt + new_tokens)
+    logits, caches = model.prefill(batch, s_max=start + new_tokens)
     tok = _greedy(logits)
     _sync(device)
-    res = ServeResult(tokens=tok, prefill_logits=logits)
+    res = ServeResult(tokens=tok, prefill_logits=logits, start=start)
     res.prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for t in range(new_tokens - 1):
-        logits, caches = model.decode(caches, tok, n_prompt + t)
+        logits, caches = model.decode(caches, tok, start + t)
         tok = _greedy(logits)
         res.decode_logits.append(logits)
         out.append(tok)
@@ -82,6 +93,21 @@ def serve(model: LM, prompts: torch.Tensor, new_tokens: int) -> ServeResult:
     res.decode_s = time.perf_counter() - t0
     res.tokens = torch.cat(out, dim=1)
     return res
+
+
+def stub_inputs(cfg, batch: int, gen: torch.Generator, *, vision_tokens: int,
+                source_frames: int) -> dict:
+    """The stub frontends' embeddings for ``cfg``'s family, as the reference
+    example draws them: ``0.01·N(0,1)`` vision embeddings (B, v, d) for a
+    VLM, ``0.1·N(0,1)`` frames (B, S_src, d) for an encoder-decoder."""
+    if cfg.family == "vlm":
+        key, n, scale = "vision_embeds", vision_tokens, 0.01
+    elif cfg.family in ("encdec", "audio"):
+        key, n, scale = "frames", source_frames, 0.1
+    else:
+        return {}
+    x = torch.randn((batch, n, cfg.d_model), generator=gen, device=gen.device)
+    return {key: scale * x}
 
 
 def main(argv=None) -> ServeResult:
@@ -95,6 +121,10 @@ def main(argv=None) -> ServeResult:
     ap.add_argument(
         "--full", action="store_true", help="the published config, not .reduced()"
     )
+    ap.add_argument("--vision-tokens", type=int, default=16,
+                    help="stub vision tokens before the prompt (vlm)")
+    ap.add_argument("--source-frames", type=int, default=16,
+                    help="stub source frames for the encoder (encdec / audio)")
     args = ap.parse_args(argv)
 
     cfg = registry.get(args.arch)
@@ -106,7 +136,9 @@ def main(argv=None) -> ServeResult:
     prompts = torch.randint(
         0, cfg.vocab, (args.batch, args.prompt_len), generator=gen, device=device
     )
-    res = serve(model, prompts, args.new_tokens)
+    inputs = stub_inputs(cfg, args.batch, gen, vision_tokens=args.vision_tokens,
+                         source_frames=args.source_frames)
+    res = serve(model, prompts, args.new_tokens, inputs)
     b, n = args.batch, args.new_tokens - 1
     print(f"prefill {b}x{args.prompt_len}: {res.prefill_s:.2f}s")
     rate = b * n / res.decode_s if res.decode_s > 0 else float("inf")

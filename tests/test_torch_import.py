@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 63, proc.stdout
+    assert n >= 65, proc.stdout
     imported = set(proc.stdout.split())
     for name in (
         "repro_torch.kernels.ssd_scan",
@@ -79,6 +79,8 @@ def test_every_port_module_imports_without_jax():
         "repro_torch.core.ranks",
         "repro_torch.apps.multirank",
         "repro_torch.figures.fig7_hlo_vs_traced",
+        "repro_torch.models.moe",
+        "repro_torch.models.encdec",
     ):
         assert name in imported, proc.stdout
 
@@ -87,7 +89,7 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 64
+    assert len(sources) >= 66
     names = {os.path.relpath(p, _ROOT) for p in sources}
     assert {
         "src/repro_torch/kernels/mlstm_scan.py",
@@ -107,6 +109,8 @@ def test_no_source_imports_jax_or_repro():
         "src/repro_torch/core/ranks.py",
         "src/repro_torch/apps/multirank.py",
         "src/repro_torch/figures/fig7_hlo_vs_traced.py",
+        "src/repro_torch/models/moe.py",
+        "src/repro_torch/models/encdec.py",
     } <= names
     for path in sources:
         with open(path) as f:

@@ -89,7 +89,7 @@ def test_make_source_matches_jax():
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-def test_real_tensors_are_not_executed_yet():
+def test_real_tensors_raise_without_a_process_group():
     """Without a process group of the mesh's ranks, real tensors are not
     executed: the driver and a bare collective raise (no single-rank
     fallback)."""

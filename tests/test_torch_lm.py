@@ -27,12 +27,14 @@ import torch
 
 from repro.configs import registry as jax_registry
 from repro.models import blocks as JB
+from repro.models import encdec as JE
 from repro.models import lm as JL
 from repro.models.model import build_model as jax_build
 from repro_torch import interop, serve_lm
 from repro_torch.configs import registry
 from repro_torch.core.backend import BackendUnavailable
 from repro_torch.models import blocks as TB
+from repro_torch.models import encdec as TE
 from repro_torch.models import lm as TL
 from repro_torch.models.model import build_model
 
@@ -80,10 +82,13 @@ def test_configs_are_copies(arch):
     assert registry.get(arch).param_count() == jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS)
 def test_param_defs_match_reference(arch):
-    jdefs = JL.model_defs(jax_registry.get(arch))
-    tdefs = TL.model_defs(registry.get(arch))
+    jcfg, cfg = jax_registry.get(arch), registry.get(arch)
+    if cfg.family in ("encdec", "audio"):
+        jdefs, tdefs = JE.EncDec(jcfg).defs, TE.model_defs(cfg)
+    else:
+        jdefs, tdefs = JL.model_defs(jcfg), TL.model_defs(cfg)
     is_def = lambda x: hasattr(x, "axes")  # noqa: E731
     jleaves = jax.tree_util.tree_flatten_with_path(jdefs, is_leaf=is_def)[0]
     tleaves = jax.tree_util.tree_flatten_with_path(tdefs, is_leaf=is_def)[0]
@@ -117,20 +122,6 @@ def test_bf16_crosses_bit_for_bit():
     t = interop.tensor_from_numpy(arr)
     assert t.dtype == torch.bfloat16
     assert t.view(torch.int16).numpy().tobytes() == arr.tobytes()
-
-
-@pytest.mark.parametrize(
-    "arch",
-    [
-        "minicpm3-4b",
-        "granite-moe-3b-a800m",
-        "qwen2-vl-7b",
-        "seamless-m4t-medium",
-    ],
-)
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError):
-        build_model(registry.get(arch).reduced(), device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
