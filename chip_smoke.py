@@ -6,7 +6,8 @@
 Phases (each one fails the run with a non-zero exit on any mismatch):
 
 1. card — the device's name, and ``nvidia-smi``'s name and power limit;
-2. build — compile the CUDA kernels from ``src/repro_torch/csrc``; log
+2. build — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
+   flash backward among them); log
    every kernel's ``ptxas`` registers and spills, and fail unless the
    flash, SSD and mLSTM libraries' SASS holds ``HGMMA`` (their bf16
    kernels run on the tensor cores);
@@ -144,7 +145,34 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    the same model under ``ops.plain()`` and against teacher forcing, by the
    rule, held in f32 and in bf16 where the rule is well posed (the plain
    model stays inside it when every attention output moves by 1e-6,
-   ``rule_probe``; else bf16 is reported).
+   ``rule_probe``; else bf16 is reported);
+17. train — (a) the flash-attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) against autograd of the plain version,
+   dq, dk and dv, at olmo-1b's train shape (B 2, S 4096, bf16),
+   deepseek-coder-33b's GQA, gemma-2b's MQA at head dim 256, the encoder's
+   bidirectional shape, cross-attention with Sq > Sk (16 keys) and Sq < Sk,
+   ragged 1000-token tiles, head dims 32 and 64 and two f32 cases (bf16 rtol
+   2e-2 and atol 2e-2 x each tensor's max|plain|, f32 1e-4), two calls
+   bit-equal, each case's device time (launches queued; and the median of
+   10 calls timed alone), bound (5 products of Sq x Sk x D a
+   head, halved when causal, against the bytes of q, k, v, o, dO and the
+   three gradients), the plain version's time and ``sdpa``'s backward;
+   (b) ``python -m repro_torch.launch.train --arch olmo-1b --full-size``,
+   2 x 4096 tokens a step, 5 steps (2 of warm-up): exactly 16 flash and 16
+   backward launches a step and no other model kernel, seconds a step,
+   tokens/s, the share of 989 TFLOP/s by ``configs/base.py``'s
+   ``model_flops``, peak CUDA MB; then one step of the same model with
+   every backward call held to the plain version, one profiled by
+   ``torch.profiler`` (flash forward, flash backward, GEMMs, the rest; the
+   idle share) and one split on the device clock into forward, backward
+   and optimizer; (c) one reduced f32 step (its loss, gradient norm and
+   every gradient leaf) of olmo, gemma, deepseek, minicpm3, granite, grok,
+   qwen2-vl and seamless against the same step under ``ops.plain()``;
+   (d) zamba2's and xlstm's steps raise ``NotImplementedError`` (their
+   scans have no backward kernel yet); (e) ``python -m
+   repro_torch.examples.train_lm`` (the ~100M olmo) for 300 steps, its
+   loss falling; (f) a save, then a resume, the resumed losses within
+   1e-3 of the uninterrupted run's.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -155,6 +183,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -177,11 +206,14 @@ SEED = 20260808
 WARM_REDUCTIONS = 3
 #: the CUDA sources the main paths run (src/repro_torch/csrc/<name>.cu)
 KERNEL_SOURCES = (
-    "segment_reduce", "flash_attention", "decode_attention", "ssd_scan", "mlstm_scan"
+    "segment_reduce", "flash_attention", "flash_attention_bwd", "decode_attention",
+    "ssd_scan", "mlstm_scan",
 )
 #: the TPU kernel each model kernel replaces
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:81",
+    # no TPU kernel: repro differentiates its plain attention through XLA
+    "flash_attention_bwd": "none (the gradient of src/repro/kernels/flash_attention.py:81)",
     "decode_attention": "src/repro/kernels/decode_attention.py:66",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
     "mlstm_scan": "src/repro/kernels/mlstm_scan.py:79",
@@ -1290,7 +1322,8 @@ def end_to_end(model, res, prompts, n_new: int, inputs=None) -> dict:
             out[f"decode {t} vs plain"] = diff
     del caches, logits
     seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
-    full, _ = model.train_logits({"tokens": seq, **inputs})
+    with torch.no_grad():
+        full, _ = model.train_logits({"tokens": seq, **inputs})
     scale = float(full.abs().max())
     want = full[:, start - 1]
     diff = _logits_diff(res.prefill_logits[:, 0], want, scale)
@@ -1425,6 +1458,7 @@ def serve_phase() -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     want_counts = {
         "flash_attention": cfg.n_layers,
+        "flash_attention_bwd": 0,
         "decode_attention": cfg.n_layers * (n_new - 1),
         "ssd_scan": 0,
         "mlstm_scan": 0,
@@ -1449,7 +1483,8 @@ def serve_phase() -> dict:
             tok = res.tokens[:, t : t + 1]
             logits, caches = model.decode(caches, tok, n_prompt + t)
         seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
-        model.train_logits({"tokens": seq})
+        with torch.no_grad():
+            model.train_logits({"tokens": seq})
     del caches, logits
     # the device's share of a step: its work timed with the launches queued
     # behind a sleep kernel, against the host clock of the served run
@@ -1823,6 +1858,7 @@ def zamba2_phase() -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     want_counts = {
         "flash_attention": n_shared,
+        "flash_attention_bwd": 0,
         "decode_attention": n_shared * (n_new - 1),
         "ssd_scan": cfg.n_layers,
         "mlstm_scan": 0,
@@ -1848,7 +1884,8 @@ def zamba2_phase() -> dict:
         for t in range(4):
             logits, caches = model.decode(caches, res.tokens[:, t : t + 1], n_prompt + t)
         seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
-        model.train_logits({"tokens": seq})
+        with torch.no_grad():
+            model.train_logits({"tokens": seq})
     if ssd_shadow.calls != 2 * cfg.n_layers:
         fail(f"zamba2: the shadow saw {ssd_shadow.calls} ssd calls")
     del caches, logits
@@ -2180,6 +2217,7 @@ def xlstm_phase() -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     want_counts = {
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
         "mlstm_scan": cfg.n_layers,
@@ -2205,7 +2243,8 @@ def xlstm_phase() -> dict:
         for t in range(4):
             logits, caches = model.decode(caches, res.tokens[:, t : t + 1], n_prompt + t)
         seq = torch.cat([prompts, res.tokens[:, : n_new - 1]], dim=1)
-        model.train_logits({"tokens": seq})
+        with torch.no_grad():
+            model.train_logits({"tokens": seq})
     if shadow.calls != 2 * cfg.n_layers:
         fail(f"xlstm: the shadow saw {shadow.calls} mlstm calls")
     del caches, logits
@@ -2665,8 +2704,8 @@ def family_launches(cfg, n_new: int) -> dict:
         flash = per_step = 0
     else:
         flash = per_step = cfg.n_layers
-    return {"flash_attention": flash, "decode_attention": per_step * steps,
-            "ssd_scan": 0, "mlstm_scan": 0}
+    return {"flash_attention": flash, "flash_attention_bwd": 0,
+            "decode_attention": per_step * steps, "ssd_scan": 0, "mlstm_scan": 0}
 
 
 def _family_serve(arch: str, full: bool, stub: dict, cold: bool) -> dict:
@@ -2882,6 +2921,420 @@ def families_phase() -> dict:
     return {"models": rows, "launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: train on one device
+# ---------------------------------------------------------------------------
+
+#: backward cases: (label, B, Hq, Hkv, Sq, Sk, D, causal, dtype)
+BWD_CASES = [
+    ("olmo-1b train S 4096", 2, 16, 16, 4096, 4096, 128, True, torch.bfloat16),
+    ("deepseek-coder-33b GQA", 1, 56, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("gemma-2b MQA D 256", 1, 8, 1, 1024, 1024, 256, True, torch.bfloat16),
+    ("seamless encoder non-causal", 4, 16, 16, 1024, 1024, 64, False, torch.bfloat16),
+    ("cross Sq > Sk, 16 frames", 4, 16, 16, 1024, 16, 64, False, torch.bfloat16),
+    ("cross Sq < Sk non-causal", 2, 16, 16, 100, 1000, 64, False, torch.bfloat16),
+    ("ragged 1000-token tiles", 1, 8, 8, 1000, 1000, 128, True, torch.bfloat16),
+    ("head dim 32", 4, 4, 2, 1024, 1024, 32, True, torch.bfloat16),
+    ("head dim 64", 2, 16, 16, 1024, 1024, 64, True, torch.bfloat16),
+    ("odd non-causal f32", 1, 2, 2, 33, 33, 32, False, torch.float32),
+    ("olmo-1b f32", 1, 16, 16, 1024, 1024, 128, True, torch.float32),
+]
+#: dq, dk, dv against autograd of the plain version: rtol and atol x the
+#: tensor's max|plain| (phase 7's row-scaled rule, per tensor); bf16 sums
+#: run in another order and the gradients round to bf16
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: the published olmo-1b trained at repro's train_4k sequence length
+TRAIN_ARGV = [
+    "--arch", "olmo-1b", "--full-size", "--seq-len", "4096", "--global-batch", "2",
+    "--steps", "5", "--warmup-steps", "2",
+]
+#: the flash-only archs whose reduced f32 step is held to ops.plain()
+TRAIN_ARCHS = ["olmo-1b", "gemma-2b", "deepseek-coder-33b", "minicpm3-4b",
+               "granite-moe-3b-a800m", "grok-1-314b", "qwen2-vl-7b",
+               "seamless-m4t-medium"]
+#: the reduced f32 step, kernels against plain versions: each arch's worst
+#: gradient leaf (relative to its max|plain|) and gradient-norm distance as
+#: an H100 (700 W) read them when these steps were first held, kernels
+#: against plain; f32 gradients of the reduced random models are
+#: ill-conditioned (nearly one-hot attention), so a kernel's rounding moves
+#: them by more than its own error, which (a) holds.  The limits are
+#: TRAIN_MARGIN x each reading, and the loss is held to rtol 1e-5
+TRAIN_READINGS = {
+    "olmo-1b": {"leaf": 4.89e-4, "grad_norm": 4.81e-4},
+    "gemma-2b": {"leaf": 1.96e-4, "grad_norm": 1.15e-4},
+    "deepseek-coder-33b": {"leaf": 1.54e-4, "grad_norm": 6.6e-7},
+    "minicpm3-4b": {"leaf": 0.0, "grad_norm": 0.0},
+    "granite-moe-3b-a800m": {"leaf": 2.45e-4, "grad_norm": 2.08e-4},
+    "grok-1-314b": {"leaf": 2.45e-4, "grad_norm": 2.08e-4},
+    "qwen2-vl-7b": {"leaf": 2.81e-4, "grad_norm": 1.45e-5},
+    "seamless-m4t-medium": {"leaf": 8.58e-3, "grad_norm": 1.15e-3},
+}
+TRAIN_MARGIN = 3.0
+#: the floor of every limit: a few hundred f32 ulps, where a reading is 0
+#: (minicpm3 runs no flash kernel) and the embedding's backward may sum in
+#: another order on the card from one run to the next
+TRAIN_FLOOR = 1e-5
+TRAIN_LOSS_RTOL = 1e-5
+#: steps of examples/train_lm.py's ~100M model, and the resume's
+EXAMPLE_STEPS = 300
+RESUME_RTOL = 1e-3
+
+
+def _bwd_excess(got, want, tol: float) -> float:
+    """How far each of dq, dk, dv passes rtol = tol and atol = tol x its
+    max|plain|, at the worst; <= 0 holds."""
+    return max(
+        float(((g.float() - w.float()).abs()
+               - tol * (w.float().abs() + w.float().abs().max())).max())
+        for g, w in zip(got, want)
+    )
+
+
+def backward_cases(card: str) -> list:
+    """(a): the backward kernel against autograd of the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    bw, _ = memory_rate(card)
+    for label, b, hq, hkv, sq, sk, d, causal, dtype in BWD_CASES:
+        q = randn(b, hq, sq, d, dtype=dtype)
+        k, v = randn(b, hkv, sk, d, dtype=dtype), randn(b, hkv, sk, d, dtype=dtype)
+        dout = randn(b, hq, sq, d, dtype=dtype)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        torch.cuda.synchronize()
+        want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
+        tol = BWD_TOL[dtype]
+        excess = _bwd_excess(got, want, tol)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        if excess > 0:
+            fail(f"train: backward {label}: kernel differs from autograd of the "
+                 f"plain version by {excess} past the rule (max {err})")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"train: backward {label}: two calls differ")
+        mask = None
+        if causal and sq != sk:
+            qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            mask = qpos >= torch.arange(sk, device=dev)[None, :]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=hq != hkv)
+        del want
+        def kernel():
+            return fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+
+        k_ms = device_ms(kernel, 10)
+        median_ms = cuda_ms(kernel, 10)
+        p_ms = device_ms(lambda: fab.flash_attention_bwd_plain(q, k, v, dout,
+                                                               causal=causal), 3)
+        l_ms = device_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                     retain_graph=True), 10)
+        pairs = sq * (sk - sq) + sq * (sq + 1) // 2 if causal else sq * sk
+        es = q.element_size()
+        flops = 5 * 2 * b * hq * d * pairs
+        nbytes = (4 * b * hq * sq + 4 * b * hkv * sk) * d * es
+        peak, _ = op_rate(card, dtype)
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
+        row = {
+            "case": label, "shape": [b, hq, hkv, sq, sk, d], "causal": causal,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "excess": excess, "bit_equal_calls": True,
+            "ms": k_ms["ms"], "median_ms": median_ms, "plain_ms": p_ms["ms"],
+            "library_ms": l_ms["ms"],
+            "queued": k_ms["queued"] and p_ms["queued"] and l_ms["queued"],
+            "flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        }
+        log(f"train backward {label} {row['shape']} {row['dtype']} causal={causal}: "
+            f"ms={row['ms']:.4f} median_ms={median_ms:.4f} bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) plain_ms={row['plain_ms']:.3f} "
+            f"sdpa_bwd_ms={row['library_ms']:.4f} queued={row['queued']} "
+            f"max_abs_err={err} excess={excess}")
+        rows.append(row)
+        del q, k, v, dout, out, got, again, leaves, lib_out, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+class ShadowBackward:
+    """While entered, every call of the backward kernel through autograd also
+    runs autograd of the plain version on the same inputs and holds the
+    kernel to it by BWD_TOL's rule; the step goes on with the kernel's
+    gradients."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention_bwd as fab
+
+        self._fab, self._saved = fab, fab.flash_attention_bwd
+        self.calls, self.worst_excess, self.max_abs_err = 0, -math.inf, 0.0
+
+        def shadowed(q, k, v, out, dout, *, causal=True):
+            got = self._saved(q, k, v, out, dout, causal=causal)
+            want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
+            excess = _bwd_excess(got, want, BWD_TOL[q.dtype])
+            if excess > 0:
+                fail(f"train: backward call {self.calls} differs from the plain "
+                     f"version in the model by {excess} past the rule")
+            self.calls += 1
+            self.worst_excess = max(self.worst_excess, excess)
+            self.max_abs_err = max(self.max_abs_err, max(
+                float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+            return got
+
+        fab.flash_attention_bwd = shadowed
+        return self
+
+    def __exit__(self, *exc):
+        self._fab.flash_attention_bwd = self._saved
+
+    def summary(self) -> dict:
+        return {"calls": self.calls, "worst_excess": self.worst_excess,
+                "max_abs_err": self.max_abs_err}
+
+
+def _train_batch(cfg, seq: int, batch: int, step: int = 0) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                seed=SEED))
+    return {k: v.cuda() for k, v in ds.batch(step).items()}
+
+
+def olmo_train(card: str) -> dict:
+    """(b): the published olmo-1b trained 5 steps through the launcher, then
+    one step of the same model shadowed, profiled and split by phase."""
+    from repro_torch.configs import base, registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = registry.get("olmo-1b")
+    seq, batch, n_steps = 4096, 2, 5
+    ckpt = OUT_DIR / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    losses, mon = launch.main(TRAIN_ARGV + ["--ckpt-dir", str(ckpt)])
+    main_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    shutil.rmtree(ckpt, ignore_errors=True)
+    want = {"flash_attention": cfg.n_layers * n_steps,
+            "flash_attention_bwd": cfg.n_layers * n_steps,
+            "decode_attention": 0, "ssd_scan": 0, "mlstm_scan": 0}
+    if counts != want:
+        fail(f"train: kernel launches {counts}, expected {want}")
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses {losses}")
+    step_s = [dt for _, dt in mon.times]
+    warm_s = statistics.median(step_s[1:])
+    tokens = seq * batch
+    flops = base.model_flops(cfg, base.ShapeConfig("train", "train", seq, batch))
+    peak, peak_name = op_rate(card, torch.bfloat16)
+
+    # one more model: a step shadowed, a step profiled, a step split by phase
+    torch.cuda.empty_cache()
+    model = build_model(cfg, seed=SEED)
+    opt_cfg = adamw.OptConfig(lr=3e-4, warmup_steps=2, total_steps=n_steps)
+    step = steps.make_train_step(cfg, opt_cfg)
+    opt = adamw.init_state(dict(model.named_parameters()))
+    data = _train_batch(cfg, seq, batch)
+    opt, metrics = step(model, opt, data)  # warm
+    with ShadowBackward() as shadow:
+        opt, metrics = step(model, opt, data)
+    if shadow.calls != cfg.n_layers:
+        fail(f"train: {shadow.calls} backward calls shadowed, {cfg.n_layers} expected")
+    gnorm = float(metrics["grad_norm"])
+    if not (math.isfinite(float(metrics["loss"])) and gnorm > 0):
+        fail(f"train: loss {float(metrics['loss'])}, grad norm {gnorm}")
+    prof = device_profile(lambda: step(model, opt, data))
+    split = split_kernels(prof["kernels"], {
+        "flash_bwd": r"dq_kernel|dkv_kernel",
+        "flash_fwd": r"flash_tc_kernel|flash_kernel",
+        "gemm": r"gemm|sm90_xmma|cutlass|nvjet",
+    })
+    # the step's phases on the device clock: events between the forward,
+    # the backward and the optimizer (each span includes its idle gaps)
+    loss_fn = steps.make_loss_fn(cfg)
+    params = dict(model.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev[0].record()
+    loss, _ = loss_fn(model, data)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    opt, _ = adamw.apply_updates(opt_cfg, params, grads, opt, adamw.decay_mask(model))
+    ev[3].record()
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t
+    phases = {name: ev[i].elapsed_time(ev[i + 1])
+              for i, name in enumerate(("forward", "backward", "optimizer"))}
+    del model, opt, data, grads, params, loss
+    torch.cuda.empty_cache()
+    step_ms = sum(phases.values())
+    row = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "seq_len": seq, "global_batch": batch, "steps": n_steps,
+        "losses": losses, "main_s": main_s, "step_s": step_s,
+        "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
+        "model_flops_per_step": flops, "peak_rate": peak_name,
+        "mfu": flops / warm_s / peak, "peak_cuda_mb": peak_mb,
+        "launches": counts, "shadow": shadow.summary(), "grad_norm": gnorm,
+        "profile": {"device_ms": prof["device_ms"], "launches": prof["launches"],
+                    "top": prof["top"], "split_ms": split},
+        "phases_ms": phases, "split_step_s": split_s,
+        # the card's idle share of a user's step: the profiled step's kernel
+        # time against the launcher's warm step on the host clock
+        "idle_share": 1 - prof["device_ms"] / (warm_s * 1e3),
+        "split_step_ms": step_ms,
+    }
+    log(f"train {cfg.name} full size, {batch} x {seq} tokens, {n_steps} steps: "
+        f"losses={losses} warm step {warm_s:.3f} s, {row['tokens_per_s']:.0f} tok/s, "
+        f"MFU {row['mfu']:.4f} of {peak_name}; peak_cuda_MB={peak_mb:.1f}; "
+        f"launches={counts}")
+    log(f"train step split (device clock, ms): {phases}; kernels {prof['device_ms']:.1f} "
+        f"ms by group {split}; idle share {row['idle_share']:.3f}")
+    log(f"train shadow (every backward call of a step vs plain): {shadow.summary()}")
+    return row
+
+
+def _grads_of_step(cfg, plain: bool) -> tuple:
+    """(loss, grad norm, {name: grad}, launches) of a reduced f32 step's
+    backward on the card, kernels or (``plain``) plain versions."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+
+    model = build_model(cfg, seed=SEED).float().requires_grad_(True)
+    data = _train_batch(cfg, 32, 2)
+    if cfg.family == "vlm":
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        data["vision_embeds"] = 0.01 * torch.randn(2, 16, cfg.d_model, generator=g,
+                                                   device="cuda")
+    if cfg.family in ("encdec", "audio"):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        data["frames"] = 0.1 * torch.randn(2, 16, cfg.d_model, generator=g,
+                                           device="cuda")
+    ops.reset_launch_counts()
+    with ops.plain() if plain else contextlib.nullcontext():
+        loss, _ = steps.make_loss_fn(cfg)(model, data)
+        loss.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    gn = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values())))
+    return float(loss.detach()), gn, grads, counts
+
+
+def reduced_steps() -> list:
+    """(c) and (d): reduced f32 steps against ops.plain(); the scans raise."""
+    from repro_torch.configs import registry
+    from repro_torch.optim import adamw
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+
+    rows = []
+    for arch in TRAIN_ARCHS:
+        cfg = registry.get(arch).reduced()
+        loss, gn, grads, counts = _grads_of_step(cfg, plain=False)
+        p_loss, p_gn, p_grads, p_counts = _grads_of_step(cfg, plain=True)
+        n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family in ("encdec", "audio")
+                  else 0 if cfg.mla is not None else cfg.n_layers)
+        if counts["flash_attention"] != n_attn or counts["flash_attention_bwd"] != n_attn:
+            fail(f"train (reduced {arch}): launches {counts}, {n_attn} of each flash "
+                 "kernel expected")
+        if any(p_counts.values()):
+            fail(f"train (reduced {arch}): plain step launched {p_counts}")
+        leaf = max(float((grads[n].float() - g.float()).abs().max())
+                   / max(float(g.float().abs().max()), 1e-30) for n, g in p_grads.items())
+        limit = {k: max(TRAIN_MARGIN * r, TRAIN_FLOOR)
+                 for k, r in TRAIN_READINGS[arch].items()}
+        gn_rel = abs(gn / p_gn - 1)
+        held = (abs(loss / p_loss - 1) <= TRAIN_LOSS_RTOL
+                and gn_rel <= limit["grad_norm"] and leaf <= limit["leaf"])
+        row = {"arch": arch, "loss": loss, "plain_loss": p_loss, "grad_norm": gn,
+               "plain_grad_norm": p_gn, "grad_norm_rel": gn_rel, "worst_leaf_rel": leaf,
+               "limits": limit, "launches": counts, "holds": held}
+        log(f"train reduced {arch} f32 step vs plain: {row}")
+        if not held:
+            fail(f"train (reduced {arch}): the step differs from ops.plain(): {row}")
+        rows.append(row)
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        cfg = registry.get(arch).reduced()
+        model = build_model(cfg, seed=SEED)
+        step = steps.make_train_step(cfg)
+        opt = adamw.init_state(dict(model.named_parameters()))
+        try:
+            step(model, opt, _train_batch(cfg, 32, 2))
+        except NotImplementedError as exc:
+            log(f"train reduced {arch}: raises NotImplementedError ({exc})")
+            rows.append({"arch": arch, "raises": str(exc)})
+        else:
+            fail(f"train (reduced {arch}): the step ran without a backward kernel")
+    return rows
+
+
+def example_and_resume() -> dict:
+    """(e) examples/train_lm.py end to end; (f) a save, then a resume."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch
+
+    out = {}
+    ckpt = OUT_DIR / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    losses, mon = train_lm.main(["--steps", str(EXAMPLE_STEPS), "--ckpt-dir", str(ckpt)])
+    out["example"] = {"steps": EXAMPLE_STEPS, "seconds": time.perf_counter() - t,
+                      "first_loss": losses[0], "last_loss": losses[-1],
+                      "losses_every_10": losses[::10],
+                      "median_step_s": statistics.median(dt for _, dt in mon.times)}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"train example (~100M olmo, {EXAMPLE_STEPS} steps): {out['example']}")
+
+    run = launch.RunConfig(arch="olmo-1b", steps=6, seq_len=64, global_batch=4,
+                           ckpt_every=3, warmup_steps=2, ckpt_dir=str(ckpt))
+    whole, _ = launch.train(run, verbose=False)
+    shutil.rmtree(ckpt / "step_00000006")
+    resumed, _ = launch.train(run, verbose=False)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rel = max(abs(a / b - 1) for a, b in zip(resumed, whole[3:]))
+    out["resume"] = {"whole": whole, "resumed": resumed, "max_rel": rel}
+    log(f"train resume (reduced olmo-1b, from step 3 of 6): {out['resume']}")
+    if len(resumed) != 3 or rel > RESUME_RTOL:
+        fail(f"train: the resumed losses {resumed} differ from {whole[3:]}")
+    return out
+
+
+def train_phase(card: str) -> dict:
+    t = time.perf_counter()
+    cases = backward_cases(card)
+    olmo = olmo_train(card)
+    reduced = reduced_steps()
+    rest = example_and_resume()
+    seconds = time.perf_counter() - t
+    log(f"train: phase 17 in {seconds:.1f} s")
+    return {"backward": cases, "olmo": olmo, "reduced": reduced, **rest,
+            "launches": olmo["launches"], "seconds": seconds}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2896,6 +3349,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.kernels import segment_reduce as seg
     from repro_torch.kernels import ssd_scan as ssd
@@ -3001,6 +3455,10 @@ def main() -> None:
     # launches counted from here on
     families = families_phase()
 
+    # 17. train olmo-1b at its published size, and the backward kernel;
+    # attention launches counted from here on
+    train = train_phase(kind)
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -3017,9 +3475,11 @@ def main() -> None:
     }
     entries = [entry]
     # olmo-1b's shapes for the attention kernels, with the launches of its
-    # path and phase 16's; zamba2-1.2b's for the SSD scan, xlstm-1.3b's for
-    # the mLSTM scan
-    model_kernels = ((fa, flash_rows, (serve, families)),
+    # path and phases 16-17's (the backward: olmo-1b's train shape, phase
+    # 17's launches); zamba2-1.2b's for the SSD scan, xlstm-1.3b's for the
+    # mLSTM scan
+    model_kernels = ((fa, flash_rows, (serve, families, train)),
+                     (fab, train["backward"], (train,)),
                      (dec, decode_rows, (serve, families)),
                      (ssd, ssd_rows, (zamba2,)), (ms, mlstm_rows, (xlstm,)))
     for mod, rows, paths in model_kernels:
@@ -3064,6 +3524,7 @@ def main() -> None:
         "sweeps": sweeps,
         "distributed": distributed,
         "families": families,
+        "train": train,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

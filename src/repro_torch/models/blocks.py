@@ -161,7 +161,7 @@ def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
 
 
 def attn_train(cfg, p, x, cos, sin) -> torch.Tensor:
-    """Causal self-attention over the whole sequence (forward only)."""
+    """Causal self-attention over the whole sequence (teacher forcing, training)."""
     q, k, v = _qkv(cfg, p, x, cos, sin)
     return _out_proj(p, ops.flash_attention(q, k, v, causal=True))
 

@@ -166,6 +166,9 @@ class EncDec(nn.Module):
     @torch.no_grad()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_src, d) -> the encoder's output (B, S_src, d)."""
+        return self._encode(frames)
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = frames.to(self.embed["tok"].dtype)
         cos, sin = self._rope(x.shape[1])
@@ -202,11 +205,11 @@ class EncDec(nn.Module):
         with comm_region("lm_head"):
             return B.lm_logits(self.cfg, self.embed, x)
 
-    @torch.no_grad()
     def train_logits(self, batch: dict) -> tuple:
-        """Logits over every target position (forward only) and a zero aux
-        loss; ``batch`` holds ``frames`` and ``tokens``."""
-        enc_out = self.encode(batch["frames"])
+        """Logits over every target position and a zero aux loss; ``batch``
+        holds ``frames`` and ``tokens``.  Autograd records the call when a
+        parameter requires a gradient."""
+        enc_out = self._encode(batch["frames"])
         x = self._embed(batch["tokens"])
         cos, sin = self._rope(x.shape[1])
         for lp in self.dec:

@@ -381,11 +381,13 @@ class LM(nn.Module):
             return B.lm_logits(self.cfg, self.embed, x)
 
     # -- forward -----------------------------------------------------------
-    @torch.no_grad()
     def train_logits(self, batch: dict) -> tuple:
-        """Logits over every position (forward only) and the summed aux loss.
+        """Logits over every position and the summed aux loss.
 
-        A VLM's logits cover the vision prefix too.
+        A VLM's logits cover the vision prefix too.  Autograd records the
+        call when a parameter requires a gradient (the trainer's
+        ``requires_grad_(True)``); serving callers run it under
+        ``torch.no_grad()``.
         """
         cfg = self.cfg
         x = self._embed(batch)

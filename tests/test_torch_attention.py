@@ -108,6 +108,7 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     assert torch.equal(out, dec.decode_attention_plain(q[:, :, :1], k, k, 5))
     assert ops.launch_counts() == {
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
         "mlstm_scan": 0,

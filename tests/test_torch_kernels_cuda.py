@@ -19,6 +19,7 @@ from repro_torch.configs import registry
 from repro_torch.core.backend import TorchBackend
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import mlstm_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as seg
@@ -186,6 +187,102 @@ def test_flash_kernel_takes_einsum_layouts(card):
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(torch.bfloat16))
+
+
+#: (B, Hq, Hkv, Sq, Sk, D): the forward's cases, and cross-attention with
+#: Sq > Sk (non-causal only)
+BWD_CASES = [
+    (2, 4, 2, 128, 128, 64),
+    (1, 8, 1, 96, 96, 64),  # MQA, ragged tiles
+    (2, 4, 4, 64, 256, 128),  # queries at the end of the keys
+    (1, 2, 2, 33, 33, 32),
+    (1, 8, 1, 200, 200, 256),  # gemma's head dim
+    (1, 7, 1, 130, 130, 128),  # deepseek's 7-head groups
+    (2, 4, 4, 100, 16, 64),  # cross-attention over 16 keys
+]
+
+
+def _bwd_close(got, want, dtype):
+    """bf16: rtol 2e-2, atol 2e-2 x max|plain| per tensor (the sums run in
+    another order and the gradients round to bf16); f32: 1e-4 likewise."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol * scale)
+
+
+def _bwd_inputs(rng, B, Hq, Hkv, Sq, Sk, D, dtype, card):
+    q = _randn(rng, (B, Hq, Sq, D), dtype, card)
+    k = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    v = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    dout = _randn(rng, (B, Hq, Sq, D), dtype, card)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_autograd_of_plain_version(
+    card, B, Hq, Hkv, Sq, Sk, D, dtype, causal
+):
+    causal = causal and Sq <= Sk
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v, dout = _bwd_inputs(rng, B, Hq, Hkv, Sq, Sk, D, dtype, card)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    before = fab.launch_count()
+    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert fab.launch_count() == before + 1
+    want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
+    _bwd_close(got, want, dtype)
+    again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_bwd_kernel_takes_einsum_layouts(card):
+    """q/k/v and dout as the model's projections give them (not contiguous)."""
+    rng = np.random.default_rng(4)
+    x = _randn(rng, (2, 40, 64), torch.bfloat16, card)
+    w = _randn(rng, (64, 4, 4, 32), torch.bfloat16, card) * 0.2
+    q, k, v, dout = (torch.einsum("bsd,dhk->bhsk", x, w[:, i]) for i in range(4))
+    assert not dout.is_contiguous()
+    out = fa.flash_attention(q, k, v, causal=True)
+    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    want = fab.flash_attention_bwd_plain(
+        *(t.contiguous() for t in (q, k, v, dout)), causal=True
+    )
+    _bwd_close(got, want, torch.bfloat16)
+
+
+def test_ops_flash_attention_runs_the_backward_kernel_under_autograd(card):
+    rng = np.random.default_rng(6)
+    q, k, v, dout = _bwd_inputs(rng, 2, 8, 2, 96, 96, 128, torch.bfloat16, card)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, dout)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=True)
+    _bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_scans_without_a_backward_kernel_raise_under_autograd(card, arch):
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    cfg = registry.get(arch).reduced()
+    model = build_model(cfg, device=card, seed=0)
+    step = make_train_step(cfg)
+    tokens = torch.zeros((2, 16), dtype=torch.long, device=card)
+    opt = adamw.init_state(dict(model.named_parameters()))
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        step(model, opt, {"tokens": tokens, "labels": tokens})
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == counts["mlstm_scan"] == 0
 
 
 @pytest.mark.parametrize(
@@ -368,6 +465,7 @@ def test_ops_plain_routes_the_card_to_plain_versions(card):
         ops.mlstm_scan(mq, mk, mv, lf, li)
     assert ops.launch_counts() == {
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
         "mlstm_scan": 0,
@@ -378,6 +476,7 @@ def test_ops_plain_routes_the_card_to_plain_versions(card):
     ops.mlstm_scan(mq, mk, mv, lf, li)
     assert ops.launch_counts() == {
         "flash_attention": 1,
+        "flash_attention_bwd": 0,
         "decode_attention": 1,
         "ssd_scan": 1,
         "mlstm_scan": 1,
@@ -390,6 +489,7 @@ def _launches_per_serve(cfg, n_new: int) -> dict:
         n_shared = -(-cfg.n_layers // cfg.shared_attn_every) - 1
         return {
             "flash_attention": n_shared,
+            "flash_attention_bwd": 0,
             "decode_attention": (n_new - 1) * n_shared,
             "ssd_scan": cfg.n_layers,
             "mlstm_scan": 0,
@@ -397,12 +497,14 @@ def _launches_per_serve(cfg, n_new: int) -> dict:
     if cfg.family == "ssm":
         return {
             "flash_attention": 0,
+            "flash_attention_bwd": 0,
             "decode_attention": 0,
             "ssd_scan": 0,
             "mlstm_scan": cfg.n_layers,
         }
     return {
         "flash_attention": cfg.n_layers,
+        "flash_attention_bwd": 0,
         "decode_attention": (n_new - 1) * cfg.n_layers,
         "ssd_scan": 0,
         "mlstm_scan": 0,
@@ -442,6 +544,7 @@ def test_reduced_zamba2_launch_counts():
     cfg = registry.get("zamba2-1.2b").reduced()
     assert _launches_per_serve(cfg, 6) == {
         "flash_attention": 2,
+        "flash_attention_bwd": 0,
         "decode_attention": 10,
         "ssd_scan": 5,
         "mlstm_scan": 0,
@@ -453,6 +556,7 @@ def test_reduced_xlstm_launch_counts():
     cfg = registry.get("xlstm-1.3b").reduced()
     assert _launches_per_serve(cfg, 6) == {
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
         "mlstm_scan": 4,
