@@ -9,8 +9,8 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 2. build — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
    flash backward among them); log
    every kernel's ``ptxas`` registers and spills, and fail unless the
-   flash, SSD and mLSTM libraries' SASS holds ``HGMMA`` (their bf16
-   kernels run on the tensor cores);
+   flash, flash backward, SSD and mLSTM libraries' SASS holds ``HGMMA``
+   (their bf16 kernels run on the tensor cores);
 3. kernel — the segmented-reduce kernel against its plain PyTorch version
    on the card at 2^24 int64 rows (about 4096 spans, one holding half the
    rows), a (2^20, 8) int64 grid and a float64 sum, then spans of exactly
@@ -40,7 +40,10 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    holds one key, at granite's and qwen2-vl's GQA, and over 16 and 1024
    cross-attention keys (each decode row records its split plan); each
    case's median time, its bound, the plain version's time and
-   ``F.scaled_dot_product_attention``'s;
+   ``F.scaled_dot_product_attention``'s; every flash case also asks for
+   the log-sum-exp the training path stores: the output must be the same
+   bits as without it, and the lse within 1e-4 of ``torch.logsumexp`` of
+   the plain scores;
 8. serve — ``python -m repro_torch.serve_lm --arch olmo-1b --full`` at its
    published width and depth (16 layers, d 2048): 4 prompts of 1024 tokens,
    32 greedy tokens; exactly 16 flash and 496 decode launches; prefill and
@@ -154,18 +157,22 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    ragged 1000-token tiles, head dims 32 and 64 and two f32 cases (bf16 rtol
    2e-2 and atol 2e-2 x each tensor's max|plain|, f32 1e-4), two calls
    bit-equal, each case's device time (launches queued; and the median of
-   10 calls timed alone), bound (5 products of Sq x Sk x D a
-   head, halved when causal, against the bytes of q, k, v, o, dO and the
-   three gradients), the plain version's time and ``sdpa``'s backward;
+   10 calls timed alone), each of its CUDA kernels' device time a launch
+   (``torch.profiler``: the dK/dV, dQ, Delta and group-sum passes), bound
+   (5 products of Sq x Sk x D a head, halved when causal, against the
+   bytes of q, k, v, o, dO and the three gradients), the plain version's
+   time and ``sdpa``'s backward;
    (b) ``python -m repro_torch.launch.train --arch olmo-1b --full-size``,
    2 x 4096 tokens a step, 5 steps (2 of warm-up): exactly 16 flash and 16
    backward launches a step and no other model kernel, seconds a step,
    tokens/s, the share of 989 TFLOP/s by ``configs/base.py``'s
    ``model_flops``, peak CUDA MB; then one step of the same model with
-   every backward call held to the plain version, one profiled by
-   ``torch.profiler`` (flash forward, flash backward, GEMMs, the rest; the
-   idle share) and one split on the device clock into forward, backward
-   and optimizer; (c) one reduced f32 step (its loss, gradient norm and
+   every backward call held to the plain version and no input copied into
+   a layout TMA takes, one profiled by ``torch.profiler`` (flash forward,
+   the flash backward's two product kernels, its Delta and group-sum
+   passes, GEMMs, the rest; the backward's share of the kernels; the idle
+   share) and one split on the device clock into forward, backward and
+   optimizer; (c) one reduced f32 step (its loss, gradient norm and
    every gradient leaf) of olmo, gemma, deepseek, minicpm3, granite, grok,
    qwen2-vl and seamless against the same step under ``ops.plain()``;
    (d) zamba2's and xlstm's steps raise ``NotImplementedError`` (their
@@ -1123,6 +1130,8 @@ DECODE_CASES = [
 ]
 #: tests/test_kernels.py's tolerances: bf16 2e-2, f32 2e-5 (rtol = atol)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: the stored log-sum-exp against torch.logsumexp of the plain f32 scores
+LSE_ATOL = 1e-4
 
 
 def row_scaled_excess(got, want, tol: float) -> float:
@@ -1213,8 +1222,16 @@ def attention_phase(card: str) -> tuple:
         q = randn(b, hq, sq, d, dtype=dtype)
         k, v = randn(b, hkv, sk, d, dtype=dtype), randn(b, hkv, sk, d, dtype=dtype)
         got = fa.flash_attention(q, k, v, causal=causal)
+        with_lse, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal)
+        if not torch.equal(got, with_lse):
+            fail(f"flash {label}: the output differs when the lse is stored")
+        lse_err = float((lse - fa.flash_attention_lse_plain(q, k, v, causal=causal))
+                        .abs().max())
+        if not lse_err <= LSE_ATOL:
+            fail(f"flash {label}: lse differs from logsumexp of the plain scores "
+                 f"by {lse_err} (atol {LSE_ATOL})")
         mask = None
         if causal and sq != sk:
             qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
@@ -1237,9 +1254,9 @@ def attention_phase(card: str) -> tuple:
         work = (4 * b * hq * d * pairs, (2 * b * hq * sq + 2 * b * hkv * sk) * d * es)
         flash_rows.append(
             _attn_row(label, "flash", [b, hq, hkv, sq, sk, d], dtype, got, want,
-                      library(), timings, work, card)
+                      library(), timings, work, card, lse_max_abs_err=lse_err)
         )
-        del q, k, v, got, want, mask
+        del q, k, v, got, want, mask, with_lse, lse
     decode_rows = []
     for label, b, hq, hkv, s, kv_len, d, dtype in DECODE_CASES:
         q = randn(b, hq, 1, d, dtype=dtype)
@@ -2939,6 +2956,14 @@ BWD_CASES = [
     ("odd non-causal f32", 1, 2, 2, 33, 33, 32, False, torch.float32),
     ("olmo-1b f32", 1, 16, 16, 1024, 1024, 128, True, torch.float32),
 ]
+#: the backward's CUDA kernels by name: bf16 (dkv_tc, dq_tc and the two
+#: bytes-bound passes) and f32 (dq, dkv)
+BWD_PASSES = {
+    "dkv": r"dkv_tc_kernel|dkv_kernel",
+    "dq": r"dq_tc_kernel|dq_kernel",
+    "delta": r"delta_kernel",
+    "group_sum": r"group_sum_kernel",
+}
 #: dq, dk, dv against autograd of the plain version: rtol and atol x the
 #: tensor's max|plain| (phase 7's row-scaled rule, per tensor); bf16 sums
 #: run in another order and the gradients round to bf16
@@ -3007,9 +3032,9 @@ def backward_cases(card: str) -> list:
         q = randn(b, hq, sq, d, dtype=dtype)
         k, v = randn(b, hkv, sk, d, dtype=dtype), randn(b, hkv, sk, d, dtype=dtype)
         dout = randn(b, hq, sq, d, dtype=dtype)
-        out = fa.flash_attention(q, k, v, causal=causal)
-        got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-        again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
+        again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
         torch.cuda.synchronize()
         want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
         tol = BWD_TOL[dtype]
@@ -3030,9 +3055,10 @@ def backward_cases(card: str) -> list:
             enable_gqa=hq != hkv)
         del want
         def kernel():
-            return fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+            return fab.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
 
         k_ms = device_ms(kernel, 10)
+        launch_ms = split_kernels(device_profile(kernel)["per_launch"], BWD_PASSES)
         median_ms = cuda_ms(kernel, 10)
         p_ms = device_ms(lambda: fab.flash_attention_bwd_plain(q, k, v, dout,
                                                                causal=causal), 3)
@@ -3053,14 +3079,15 @@ def backward_cases(card: str) -> list:
             "queued": k_ms["queued"] and p_ms["queued"] and l_ms["queued"],
             "flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "launch_ms": launch_ms,
         }
         log(f"train backward {label} {row['shape']} {row['dtype']} causal={causal}: "
-            f"ms={row['ms']:.4f} median_ms={median_ms:.4f} bound_ms="
+            f"ms={row['ms']:.4f} median_ms={median_ms:.4f} launch_ms={launch_ms} bound_ms="
             f"{row['bound_ms']:.4f} ({row['bound_by']}) plain_ms={row['plain_ms']:.3f} "
             f"sdpa_bwd_ms={row['library_ms']:.4f} queued={row['queued']} "
             f"max_abs_err={err} excess={excess}")
         rows.append(row)
-        del q, k, v, dout, out, got, again, leaves, lib_out, mask
+        del q, k, v, dout, out, lse, got, again, leaves, lib_out, mask
         torch.cuda.empty_cache()
     return rows
 
@@ -3077,8 +3104,8 @@ class ShadowBackward:
         self._fab, self._saved = fab, fab.flash_attention_bwd
         self.calls, self.worst_excess, self.max_abs_err = 0, -math.inf, 0.0
 
-        def shadowed(q, k, v, out, dout, *, causal=True):
-            got = self._saved(q, k, v, out, dout, causal=causal)
+        def shadowed(q, k, v, out, dout, *, causal=True, lse=None):
+            got = self._saved(q, k, v, out, dout, causal=causal, lse=lse)
             want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
             excess = _bwd_excess(got, want, BWD_TOL[q.dtype])
             if excess > 0:
@@ -3113,6 +3140,7 @@ def olmo_train(card: str) -> dict:
     """(b): the published olmo-1b trained 5 steps through the launcher, then
     one step of the same model shadowed, profiled and split by phase."""
     from repro_torch.configs import base, registry
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
     from repro_torch.models.model import build_model
@@ -3153,8 +3181,13 @@ def olmo_train(card: str) -> dict:
     opt = adamw.init_state(dict(model.named_parameters()))
     data = _train_batch(cfg, seq, batch)
     opt, metrics = step(model, opt, data)  # warm
+    fab.reset_launch_count()
     with ShadowBackward() as shadow:
         opt, metrics = step(model, opt, data)
+    copies = fab.copy_count()
+    if copies:
+        fail(f"train: the backward copied {copies} inputs into a layout TMA takes "
+             "in one step; the model's layouts should need none")
     if shadow.calls != cfg.n_layers:
         fail(f"train: {shadow.calls} backward calls shadowed, {cfg.n_layers} expected")
     gnorm = float(metrics["grad_norm"])
@@ -3162,10 +3195,12 @@ def olmo_train(card: str) -> dict:
         fail(f"train: loss {float(metrics['loss'])}, grad norm {gnorm}")
     prof = device_profile(lambda: step(model, opt, data))
     split = split_kernels(prof["kernels"], {
-        "flash_bwd": r"dq_kernel|dkv_kernel",
+        "flash_bwd": r"dq_tc_kernel|dkv_tc_kernel|dq_kernel|dkv_kernel",
+        "flash_bwd_passes": r"delta_kernel|group_sum_kernel",
         "flash_fwd": r"flash_tc_kernel|flash_kernel",
         "gemm": r"gemm|sm90_xmma|cutlass|nvjet",
     })
+    bwd_share = (split["flash_bwd"] + split["flash_bwd_passes"]) / prof["device_ms"]
     # the step's phases on the device clock: events between the forward,
     # the backward and the optimizer (each span includes its idle gaps)
     loss_fn = steps.make_loss_fn(cfg)
@@ -3199,7 +3234,9 @@ def olmo_train(card: str) -> dict:
         "mfu": flops / warm_s / peak, "peak_cuda_mb": peak_mb,
         "launches": counts, "shadow": shadow.summary(), "grad_norm": gnorm,
         "profile": {"device_ms": prof["device_ms"], "launches": prof["launches"],
-                    "top": prof["top"], "split_ms": split},
+                    "top": prof["top"], "split_ms": split,
+                    "flash_bwd_share": bwd_share},
+        "bwd_input_copies": copies,
         "phases_ms": phases, "split_step_s": split_s,
         # the card's idle share of a user's step: the profiled step's kernel
         # time against the launcher's warm step on the host clock
@@ -3211,7 +3248,8 @@ def olmo_train(card: str) -> dict:
         f"MFU {row['mfu']:.4f} of {peak_name}; peak_cuda_MB={peak_mb:.1f}; "
         f"launches={counts}")
     log(f"train step split (device clock, ms): {phases}; kernels {prof['device_ms']:.1f} "
-        f"ms by group {split}; idle share {row['idle_share']:.3f}")
+        f"ms by group {split}; flash backward {bwd_share:.3f} of the kernels; "
+        f"idle share {row['idle_share']:.3f}; backward input copies {copies}")
     log(f"train shadow (every backward call of a step vs plain): {shadow.summary()}")
     return row
 
@@ -3385,7 +3423,7 @@ def main() -> None:
                 f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
                 "bytes spill loads")
     hgmma = {}
-    for name in ("flash_attention", "ssd_scan", "mlstm_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "mlstm_scan"):
         hgmma[name] = sass_count(_build.library_path(name), "HGMMA")
         if not hgmma[name]:
             fail(f"build: the {name} library's SASS holds no HGMMA: its bf16 "

@@ -47,7 +47,11 @@
 //
 // Both: the kv head is h / (Hq / Hkv), so repeated K/V are never
 // materialised; queries sit at the end of the keys (kv_offset = Sk - Sq
-// when causal); any Sq and Sk; D in {32, 64, 128, 256}.
+// when causal); any Sq and Sk; D in {32, 64, 128, 256}.  Given an lse
+// pointer (the training path's forward), each also writes every query
+// row's natural log-sum-exp, lse = m + log l (the bf16 kernel keeps m in
+// log2 units and converts), which the backward kernel reads instead of
+// recomputing it; the output's bits do not depend on it.
 //
 // What bounds it: at the models' prefill shapes the bf16 work is balanced
 // between the bytes of Q, K, V and O and the tensor cores' operations
@@ -94,13 +98,15 @@ constexpr int smem_floats() {
          + 3 * kBlockQ;           // running max, running sum, rescale
 }
 
-template <int D>
+// kLse: also write each row's log-sum-exp (a separate instantiation, so
+// the serving path's code is what it was without it)
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, Strides qs,
-                 Strides ks, Strides vs, Strides os, int n_q_heads, int group,
-                 int seq_q, int seq_k, int kv_offset, int causal,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int n_q_heads, int group, int seq_q, int seq_k,
+                 int kv_offset, int causal, float scale) {
   constexpr int kPitch = D + 4;
   constexpr int kPPitch = kBlockK + 1;
   constexpr int kDPer = D / 16;
@@ -291,18 +297,24 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kDPer; ++j) {
         op[static_cast<int64_t>(qi) * os.s + tx + 16 * j] = acc[i][j] / denom;
       }
+      if constexpr (kLse) {
+        if (tx == 0) {
+          lse[static_cast<int64_t>(bh) * seq_q + qi] = m_s[r] + logf(l_s[r]);
+        }
+      }
     }
   }
 }
 
 template <int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* out, const int64_t* st, int batch,
+                        void* out, float* lse, const int64_t* st, int batch,
                         int n_q_heads, int n_kv_heads, int seq_q, int seq_k,
                         int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
+  auto kernel = lse != nullptr ? flash_kernel<D, true> : flash_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) {
     return err;
@@ -311,9 +323,9 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
                   static_cast<unsigned>((seq_q + kBlockQ - 1) / kBlockQ));
   const int kv_offset = causal ? seq_k - seq_q : 0;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<const float*>(v), static_cast<float*>(out), lse,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
       n_q_heads, n_q_heads / n_kv_heads, seq_q, seq_k, kv_offset, causal,
@@ -649,14 +661,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// kLse as in flash_kernel
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    __nv_bfloat16* __restrict__ out, Strides os,
-                    int n_q_heads, int group, int seq_q, int seq_k,
-                    int kv_offset, int causal, float scale_log2) {
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, Strides os, int n_q_heads,
+                    int group, int seq_q, int seq_k, int kv_offset,
+                    int causal, float scale_log2) {
   using C = Tile<D>;
   constexpr int kN = C::kN;
   constexpr int kStepsPerRow = C::kPanel / 16;  // k16 steps in a swizzle row
@@ -853,6 +867,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if constexpr (kLse) {
+      // the natural log-sum-exp of the row: m is in log2 units
+      const int qi = q0 + 64 * wg + row0 + 8 * r;
+      if (lane % 4 == 0 && qi < seq_q) {
+        lse[static_cast<int64_t>(bh) * seq_q + qi] =
+            m_run[r] * 0.6931471805599453f + logf(l_run[r]);
+      }
+    }
     l_run[r] = 1.f / fmaxf(l_run[r], 1e-30f);
   }
   __nv_bfloat16* op = out + b * os.b + h * os.h;
@@ -902,7 +924,7 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, const int64_t* st,
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      const int64_t* st, int batch, int n_q_heads,
+                      float* lse, const int64_t* st, int batch, int n_q_heads,
                       int n_kv_heads, int seq_q, int seq_k, int causal,
                       cudaStream_t stream) {
   using C = Tile<D>;
@@ -915,8 +937,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err == cudaSuccess) {
     err = make_map<D>(&map_v, v, st + 6, batch, n_kv_heads, seq_k, C::kN);
   }
+  auto kernel =
+      lse != nullptr ? flash_tc_kernel<D, true> : flash_tc_kernel<D, false>;
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kSmem);
   }
@@ -927,8 +951,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>((seq_q + C::kM - 1) / C::kM));
   const int kv_offset = causal ? seq_k - seq_q : 0;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  flash_tc_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out),
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse,
       Strides{st[9], st[10], st[11]}, n_q_heads, n_q_heads / n_kv_heads,
       seq_q, seq_k, kv_offset, causal, scale_log2);
   return cudaGetLastError();
@@ -937,18 +961,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out,
-                       const int64_t* st, int batch, int n_q_heads,
+                       float* lse, const int64_t* st, int batch, int n_q_heads,
                        int n_kv_heads, int seq_q, int seq_k, int head_dim,
                        int dtype, int causal, cudaStream_t stream) {
 #define REPRO_FLASH_CASE(DIM)                                               \
   case DIM:                                                                 \
     return dtype == 0                                                       \
-               ? launch_simt<DIM>(q, k, v, out, st, batch, n_q_heads,       \
+               ? launch_simt<DIM>(q, k, v, out, lse, st, batch, n_q_heads,  \
                                   n_kv_heads, seq_q, seq_k, causal,         \
                                   stream)                                   \
-               : tc::launch_tc<DIM>(q, k, v, out, st, batch, n_q_heads,     \
-                                    n_kv_heads, seq_q, seq_k, causal,       \
-                                    stream);
+               : tc::launch_tc<DIM>(q, k, v, out, lse, st, batch,           \
+                                    n_q_heads, n_kv_heads, seq_q, seq_k,    \
+                                    causal, stream);
   switch (head_dim) {
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
@@ -963,12 +987,15 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (B, Hq, Sq, D), k / v (B, Hkv, Sk, D), out (B, Hq, Sq, D); device
-// pointers.  strides: 12 element strides, (b, h, s) of q, k, v and out; the
-// head dim is contiguous.  dtype: 0 float32 (SIMT kernel), 1 bfloat16
+// pointers.  lse: null, or f32 (B, Hq, Sq) contiguous, where each query
+// row's natural log-sum-exp of its scaled, masked scores is written (the
+// backward kernel's input; the output is the same bits either way).
+// strides: 12 element strides, (b, h, s) of q, k, v and out; the head dim
+// is contiguous.  dtype: 0 float32 (SIMT kernel), 1 bfloat16
 // (tensor-core kernel: q, k, v need 16-byte aligned bases and strides).
 // causal: 0 or 1 (queries at the end of the keys; needs Sq <= Sk).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out,
+                                     const void* v, void* out, void* lse,
                                      const int64_t* strides, int batch,
                                      int n_q_heads, int n_kv_heads, int seq_q,
                                      int seq_k, int head_dim, int dtype,
@@ -980,7 +1007,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       (causal && seq_q > seq_k) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch_dim(q, k, v, out, strides, batch, n_q_heads,
+  return static_cast<int>(launch_dim(q, k, v, out, static_cast<float*>(lse),
+                                     strides, batch, n_q_heads,
                                      n_kv_heads, seq_q, seq_k, head_dim,
                                      dtype, causal,
                                      static_cast<cudaStream_t>(stream)));

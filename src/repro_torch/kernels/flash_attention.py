@@ -17,7 +17,11 @@ written by hand for Hopper: ``csrc/flash_attention.cu``, CUDA C++ for
   f32, 64-row query blocks, 32-key tiles.
 
 Both keep the running max, sum and accumulator in f32, and take the kv head
-as ``h // (Hq // Hkv)``, so GQA and MQA never repeat K/V.
+as ``h // (Hq // Hkv)``, so GQA and MQA never repeat K/V.  Asked with
+``return_lse=True`` (the training path), both also store each query row's
+log-sum-exp, which the backward kernel takes in place of recomputing it
+(:func:`flash_attention_lse_plain` is its plain version); the output's bits
+are the same either way.
 
 :func:`flash_attention` is the wrapper.  For a tensor on the CPU it runs
 :func:`flash_attention_plain`, the plain PyTorch version of the same
@@ -89,17 +93,23 @@ def kernel_args(q, k, v, out) -> tuple:
     return q, k, v, (ctypes.c_int64 * 12)(*strides)
 
 
+def is_aligned(t: torch.Tensor) -> bool:
+    """Whether the tensor's base and its (b, h, s) strides are whole 16-byte
+    units (a stride along a dim of size 1 is never used), as TMA and 16-byte
+    copies need."""
+    es = t.element_size()
+    steps = [s * es for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+    return t.data_ptr() % 16 == 0 and not any(s % 16 for s in steps)
+
+
 def check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless each tensor's base and its (b, h, s) strides are whole
-    16-byte units (a stride along a dim of size 1 is never used).
+    """Raise unless each tensor :func:`is_aligned`.
 
     The bf16 flash kernel's TMA copies and the decode kernel's 16-byte
     copies need this; a view that breaks it is refused, not copied.
     """
     for t in tensors:
-        es = t.element_size()
-        steps = [s * es for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(s % 16 for s in steps):
+        if not is_aligned(t):
             raise ValueError(
                 f"the {name} kernel needs 16-byte aligned bases and (b, h, s) "
                 f"strides; got base {t.data_ptr() % 16} bytes past 16, strides "
@@ -126,37 +136,54 @@ def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
     the end of the keys when causal.  Returns q's dtype.
     """
     check_qkv(q, k, v)
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        v = v.repeat_interleave(rep, dim=1)
+    probs = torch.softmax(_scores(q, k, causal), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """The scaled f32 scores (B,Hq,Sq,Sk), masked to NEG_INF when causal."""
     _, hq, sq, d = q.shape
     rep = hq // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     if causal:
         sk = k.shape[2]
         qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         mask = qpos >= torch.arange(sk, device=q.device)[None, :]
         scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    return scores
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the log-sum-exp the kernel stores: each
+    query row's natural log-sum-exp of its scaled, masked scores,
+    (B,Hq,Sq) f32."""
+    check_qkv(q, k, v)
+    return torch.logsumexp(_scores(q, k, causal), dim=-1)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
     """Attention of q (B,Hq,Sq,D) over k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D).
 
     ``causal`` puts the queries at the end of the keys (``Sq <= Sk``).  A CPU
     tensor runs :func:`flash_attention_plain`; a CUDA tensor launches the
-    kernel on the current stream.
+    kernel on the current stream.  With ``return_lse`` the result is
+    ``(out, lse)``, lse the (B,Hq,Sq) f32 log-sum-exp of each query row
+    (on the CPU, :func:`flash_attention_lse_plain`).
     """
     check_qkv(q, k, v)
     if causal and q.shape[2] > k.shape[2]:
@@ -164,15 +191,20 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
             f"causal attention needs Sq <= Sk, got {q.shape[2]} > {k.shape[2]}"
         )
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        out = flash_attention_plain(q, k, v, causal=causal)
+        if return_lse:
+            return out, flash_attention_lse_plain(q, k, v, causal=causal)
+        return out
     check_kernel_inputs("flash_attention", q)
     global _launches
     lib = _library()
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if sk == 0:
         raise ValueError("attention over zero keys")
     q, k, v, strides = kernel_args(q, k, v, out)
@@ -185,6 +217,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
             k.data_ptr(),
             v.data_ptr(),
             out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             ctypes.addressof(strides),
             b,
             hq,
@@ -200,4 +233,4 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {err}: {msg}")
     _launches += 1
-    return out
+    return (out, lse) if return_lse else out

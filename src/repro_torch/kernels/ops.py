@@ -7,8 +7,9 @@ hold the model with kernels against the same model without them on the
 card.  Nothing on the serving or training path enters it.
 
 Gradients: :func:`flash_attention` on a CUDA input that needs one runs
-through :class:`FlashAttention`, whose backward is the hand-written
-backward kernel (:mod:`repro_torch.kernels.flash_attention_bwd`).  The SSD
+through :class:`FlashAttention`, whose forward also stores each query
+row's log-sum-exp and whose backward is the hand-written backward kernel
+(:mod:`repro_torch.kernels.flash_attention_bwd`), which reads it.  The SSD
 and mLSTM scans have no backward kernel yet, so on such an input they
 raise; CPU tensors take the plain versions, which autograd differentiates.
 """
@@ -54,16 +55,16 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        out = _flash.flash_attention(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd.flash_attention_bwd(
-            q, k, v, out, dout, causal=ctx.causal
+            q, k, v, out, dout, causal=ctx.causal, lse=lse
         )
         return dq, dk, dv, None
 

@@ -228,16 +228,85 @@ def test_flash_bwd_kernel_matches_autograd_of_plain_version(
 ):
     causal = causal and Sq <= Sk
     rng = np.random.default_rng(Sq + Sk + D)
+    _check_bwd(card, rng, B, Hq, Hkv, Sq, Sk, D, dtype, causal)
+
+
+def _check_bwd(card, rng, B, Hq, Hkv, Sq, Sk, D, dtype, causal):
+    """One launch a call, the rule against autograd of the plain version,
+    and two calls bit-equal."""
     q, k, v, dout = _bwd_inputs(rng, B, Hq, Hkv, Sq, Sk, D, dtype, card)
-    out = fa.flash_attention(q, k, v, causal=causal)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     before = fab.launch_count()
-    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert fab.launch_count() == before + 1
     want = fab.flash_attention_bwd_plain(q, k, v, dout, causal=causal)
     _bwd_close(got, want, dtype)
-    again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    again = fab.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_mqa_head_dim_256_group_of_8(card, causal):
+    """gemma-2b's MQA: eight query heads' dK and dV summed through the f32
+    scratch, at D 256 (the split warpgroups), over several key tiles."""
+    _check_bwd(card, np.random.default_rng(256), 1, 8, 1, 1000, 1000, 256,
+               torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_groups_of_7_at_head_dim_128(card, causal):
+    """deepseek-coder-33b's 7-head groups (two kv heads), ragged tiles."""
+    _check_bwd(card, np.random.default_rng(7), 2, 14, 2, 700, 700, 128,
+               torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Sk,D",
+    [(2, 4, 2, 128, 128, 64), (1, 8, 1, 200, 200, 256), (2, 4, 4, 64, 256, 128),
+     (1, 2, 2, 33, 33, 32), (2, 4, 4, 100, 16, 64)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_lse_matches_plain_version(card, B, Hq, Hkv, Sq, Sk, D, dtype,
+                                                 causal):
+    """The stored log-sum-exp against its plain version; the output the same
+    bits as without it."""
+    causal = causal and Sq <= Sk
+    rng = np.random.default_rng(Sq + D)
+    q = _randn(rng, (B, Hq, Sq, D), dtype, card)
+    k = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    v = _randn(rng, (B, Hkv, Sk, D), dtype, card)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    got, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, got)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    want = fa.flash_attention_lse_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
+def test_flash_bwd_copies_what_tma_cannot_take(card):
+    """A dout off 16 bytes and an lse of 33-float rows are copied (and
+    counted), not refused; the gradients hold the rule."""
+    rng = np.random.default_rng(8)
+    q, k, v, _ = _bwd_inputs(rng, 1, 2, 2, 33, 33, 64, torch.bfloat16, card)
+    wide = _randn(rng, (1, 2, 33, 72), torch.bfloat16, card)
+    dout = wide[..., 1:65]
+    assert dout.data_ptr() % 16
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    fab.reset_launch_count()
+    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=True, lse=lse)
+    assert fab.copy_count() == 2
+    want = fab.flash_attention_bwd_plain(q, k, v, dout.contiguous(), causal=True)
+    _bwd_close(got, want, torch.bfloat16)
+
+
+def test_flash_bwd_bf16_needs_the_forwards_lse(card):
+    rng = np.random.default_rng(9)
+    q, k, v, dout = _bwd_inputs(rng, 1, 2, 2, 64, 64, 64, torch.bfloat16, card)
+    out = fa.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fab.flash_attention_bwd(q, k, v, out, dout, causal=True)
 
 
 def test_flash_bwd_kernel_takes_einsum_layouts(card):
@@ -247,8 +316,10 @@ def test_flash_bwd_kernel_takes_einsum_layouts(card):
     w = _randn(rng, (64, 4, 4, 32), torch.bfloat16, card) * 0.2
     q, k, v, dout = (torch.einsum("bsd,dhk->bhsk", x, w[:, i]) for i in range(4))
     assert not dout.is_contiguous()
-    out = fa.flash_attention(q, k, v, causal=True)
-    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    fab.reset_launch_count()
+    got = fab.flash_attention_bwd(q, k, v, out, dout, causal=True, lse=lse)
+    assert fab.copy_count() == 0  # TMA takes these views as they are
     want = fab.flash_attention_bwd_plain(
         *(t.contiguous() for t in (q, k, v, dout)), causal=True
     )
