@@ -161,7 +161,16 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    (``torch.profiler``: the dK/dV, dQ, Delta and group-sum passes), bound
    (5 products of Sq x Sk x D a head, halved when causal, against the
    bytes of q, k, v, o, dO and the three gradients), the plain version's
-   time and ``sdpa``'s backward;
+   time and ``sdpa``'s backward; then the SSD and mLSTM scans' backward
+   kernels (``csrc/ssd_scan_bwd.cu``, ``csrc/mlstm_scan_bwd.cu``) against
+   their plain backwards by the same rule, two calls bit-equal: SSD at
+   zamba2-1.2b's train shape (B 2, S 4096, H 64, P = N = 64, bf16), in f32,
+   ragged S 1000, with h0 and dh_final, with the model's strided Bm / Cm and
+   at the reduced shape; mLSTM at xlstm-1.3b's train shape (B 1, S 4096,
+   H 4, D 1024, bf16) and at B 2, D 1024 in f32, D 64, ragged S 1000, with an entering
+   state and the final state's gradients, and with steep gates; each case's
+   device time, its CUDA kernels' time a launch, bound and the plain
+   backward's time;
    (b) ``python -m repro_torch.launch.train --arch olmo-1b --full-size``,
    2 x 4096 tokens a step, 5 steps (2 of warm-up): exactly 16 flash and 16
    backward launches a step and no other model kernel, seconds a step,
@@ -174,9 +183,15 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    share) and one split on the device clock into forward, backward and
    optimizer; (c) one reduced f32 step (its loss, gradient norm and
    every gradient leaf) of olmo, gemma, deepseek, minicpm3, granite, grok,
-   qwen2-vl and seamless against the same step under ``ops.plain()``;
-   (d) zamba2's and xlstm's steps raise ``NotImplementedError`` (their
-   scans have no backward kernel yet); (e) ``python -m
+   qwen2-vl, seamless, zamba2 and xlstm against the same step under
+   ``ops.plain()``, with exactly the model kernels' launches of a step;
+   (d) ``python -m repro_torch.launch.train --full-size`` of zamba2-1.2b
+   (2 x 4096 tokens a step) and xlstm-1.3b (1 x 4096: batch 2 does not fit
+   80 GB), 4 steps each: exactly one scan
+   forward and one scan backward launch a layer a step (38 and 48) and the
+   shared block's 6 flash and 6 flash-backward launches (zamba2), finite
+   losses, seconds a step, tokens/s, the share of 989 TFLOP/s, peak CUDA
+   MB and the scan backward's share of a step; (e) ``python -m
    repro_torch.examples.train_lm`` (the ~100M olmo) for 300 steps, its
    loss falling; (f) a save, then a resume, the resumed losses within
    1e-3 of the uninterrupted run's.
@@ -214,7 +229,7 @@ WARM_REDUCTIONS = 3
 #: the CUDA sources the main paths run (src/repro_torch/csrc/<name>.cu)
 KERNEL_SOURCES = (
     "segment_reduce", "flash_attention", "flash_attention_bwd", "decode_attention",
-    "ssd_scan", "mlstm_scan",
+    "ssd_scan", "ssd_scan_bwd", "mlstm_scan", "mlstm_scan_bwd",
 )
 #: the TPU kernel each model kernel replaces
 REPLACES = {
@@ -224,6 +239,10 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:66",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
     "mlstm_scan": "src/repro/kernels/mlstm_scan.py:79",
+    # no TPU kernel: repro's models differentiate the plain chunked scans
+    # through XLA
+    "ssd_scan_bwd": "none (the gradient of src/repro/kernels/ssd_scan.py:70)",
+    "mlstm_scan_bwd": "none (the gradient of src/repro/kernels/mlstm_scan.py:79)",
 }
 
 #: kripke's paper (Dane) points and weak-scale points: (decomp, params).
@@ -1478,7 +1497,9 @@ def serve_phase() -> dict:
         "flash_attention_bwd": 0,
         "decode_attention": cfg.n_layers * (n_new - 1),
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
     if counts != want_counts:
         fail(f"serve: kernel launches {counts}, expected {want_counts}")
@@ -1878,7 +1899,9 @@ def zamba2_phase() -> dict:
         "flash_attention_bwd": 0,
         "decode_attention": n_shared * (n_new - 1),
         "ssd_scan": cfg.n_layers,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
     if counts != want_counts:
         fail(f"zamba2: kernel launches {counts}, expected {want_counts}")
@@ -2237,7 +2260,9 @@ def xlstm_phase() -> dict:
         "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": cfg.n_layers,
+        "mlstm_scan_bwd": 0,
     }
     if counts != want_counts:
         fail(f"xlstm: kernel launches {counts}, expected {want_counts}")
@@ -2722,7 +2747,8 @@ def family_launches(cfg, n_new: int) -> dict:
     else:
         flash = per_step = cfg.n_layers
     return {"flash_attention": flash, "flash_attention_bwd": 0,
-            "decode_attention": per_step * steps, "ssd_scan": 0, "mlstm_scan": 0}
+            "decode_attention": per_step * steps, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            "mlstm_scan": 0, "mlstm_scan_bwd": 0}
 
 
 def _family_serve(arch: str, full: bool, stub: dict, cold: bool) -> dict:
@@ -2968,15 +2994,47 @@ BWD_PASSES = {
 #: tensor's max|plain| (phase 7's row-scaled rule, per tensor); bf16 sums
 #: run in another order and the gradients round to bf16
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: scan backward cases: (kernel, label, B, S, H, P or D, N, chunk, dtype,
+#: options); the first of each kernel is its train shape, the main path's
+SCAN_BWD_CASES = [
+    ("ssd", "zamba2-1.2b train S 4096", 2, 4096, 64, 64, 64, 128, torch.bfloat16, {}),
+    ("ssd", "zamba2 heads f32", 1, 2048, 64, 64, 64, 128, torch.float32, {}),
+    ("ssd", "ragged S 1000", 1, 1000, 64, 64, 64, 128, torch.bfloat16, {}),
+    ("ssd", "h0 + dh_final", 1, 1024, 64, 64, 64, 128, torch.bfloat16, {"h0": True}),
+    ("ssd", "the model's strided Bm / Cm", 2, 1024, 64, 64, 64, 128, torch.bfloat16,
+     {"strided": True}),
+    ("ssd", "reduced P 32 / N 16 / chunk 16", 2, 256, 8, 32, 16, 16, torch.bfloat16, {}),
+    ("mlstm", "xlstm-1.3b train S 4096", 1, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "xlstm-1.3b at batch 2", 2, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "D 1024 f32", 1, 512, 4, 1024, 0, 128, torch.float32, {}),
+    ("mlstm", "D 64", 2, 2048, 8, 64, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "ragged S 1000", 1, 1000, 4, 1024, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "entering state + final grads", 1, 1024, 4, 256, 0, 128, torch.bfloat16,
+     {"state": True}),
+    ("mlstm", "steep gates", 1, 1024, 4, 256, 0, 128, torch.bfloat16, {"steep": True}),
+]
+#: the scan backwards' CUDA kernels by name
+SCAN_BWD_PASSES = {
+    "ssd_scan_bwd": {
+        "states": r"states_kernel", "passing": r"passing_kernel",
+        "chunk_mats": r"chunk_mats_kernel", "chunk_grads": r"chunk_grads_kernel",
+        "head_sum": r"head_sum_kernel",
+    },
+    "mlstm_scan_bwd": {
+        "gates": r"gates_kernel|final_kernel", "outer": r"outer_kernel",
+        "pass": r"pass_kernel", "z": r"z_kernel", "rows": r"rows_kernel",
+        "dstate": r"dstate_kernel",
+    },
+}
 #: the published olmo-1b trained at repro's train_4k sequence length
 TRAIN_ARGV = [
     "--arch", "olmo-1b", "--full-size", "--seq-len", "4096", "--global-batch", "2",
     "--steps", "5", "--warmup-steps", "2",
 ]
-#: the flash-only archs whose reduced f32 step is held to ops.plain()
+#: the archs whose reduced f32 step is held to ops.plain()
 TRAIN_ARCHS = ["olmo-1b", "gemma-2b", "deepseek-coder-33b", "minicpm3-4b",
                "granite-moe-3b-a800m", "grok-1-314b", "qwen2-vl-7b",
-               "seamless-m4t-medium"]
+               "seamless-m4t-medium", "zamba2-1.2b", "xlstm-1.3b"]
 #: the reduced f32 step, kernels against plain versions: each arch's worst
 #: gradient leaf (relative to its max|plain|) and gradient-norm distance as
 #: an H100 (700 W) read them when these steps were first held, kernels
@@ -2993,7 +3051,15 @@ TRAIN_READINGS = {
     "grok-1-314b": {"leaf": 2.45e-4, "grad_norm": 2.08e-4},
     "qwen2-vl-7b": {"leaf": 2.81e-4, "grad_norm": 1.45e-5},
     "seamless-m4t-medium": {"leaf": 8.58e-3, "grad_norm": 1.15e-3},
+    "zamba2-1.2b": {"leaf": 5.24e-4, "grad_norm": 3.59e-5},
+    "xlstm-1.3b": {"leaf": 9.75e-6, "grad_norm": 6.06e-7},
 }
+#: the scan archs trained at their published size through the launcher:
+#: (arch, global batch) at repro's train_4k sequence length; xlstm-1.3b
+#: runs out of the card's 80 GB at batch 2 (activations of 48 layers of
+#: width 4096), so it trains at batch 1
+SCAN_TRAINS = [("zamba2-1.2b", 2), ("xlstm-1.3b", 1)]
+SCAN_TRAIN_STEPS = 4
 TRAIN_MARGIN = 3.0
 #: the floor of every limit: a few hundred f32 ulps, where a reading is 0
 #: (minicpm3 runs no flash kernel) and the embedding's backward may sum in
@@ -3092,6 +3158,127 @@ def backward_cases(card: str) -> list:
     return rows
 
 
+def scan_bwd_inputs(gen, kind, b, s, h, p, n, dtype, opts) -> tuple:
+    """The arguments of one scan backward call on the card, drawn from
+    ``gen`` at tests/test_kernels.py's scales."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    if kind == "ssd":
+        xh = randn(b, s, h, p, dtype=dtype) * 0.5
+        la = -randn(b, s, h).abs() * 0.3
+        if opts.get("strided"):
+            # the model's layout: slices of the conv output (B, S, P H + 2 N)
+            wide = randn(b, s, h * p + 2 * n, dtype=dtype) * 0.5
+            bm, cm = wide[..., h * p:h * p + n], wide[..., h * p + n:]
+        else:
+            bm, cm = randn(b, s, n, dtype=dtype) * 0.5, randn(b, s, n, dtype=dtype) * 0.5
+        h0 = randn(b, h, p, n) * 0.3 if opts.get("h0") else None
+        dhf = randn(b, h, p, n) if opts.get("h0") else None
+        return xh, la, bm, cm, h0, randn(b, s, h, p, dtype=dtype), dhf
+    q = randn(b, s, h, p, dtype=dtype)
+    k = (randn(b, s, h, p) / p**0.5).to(dtype)
+    v = randn(b, s, h, p, dtype=dtype)
+    z = randn(b, s, h)
+    if opts.get("steep"):
+        lf, li = -3.0 + 2.0 * z, 4.0 * randn(b, s, h)
+    else:
+        lf, li = F.logsigmoid(2.0 * z), randn(b, s, h)
+    state, fin = None, (None, None, None)
+    if opts.get("state"):
+        state = (0.1 * randn(b, h, p, p), 0.1 * randn(b, h, p), randn(b, h))
+        fin = (randn(b, h, p, p), randn(b, h, p), randn(b, h))
+    return q, k, v, lf, li, state, randn(b, s, h, p), *fin
+
+
+def scan_bwd_work(kind, b, s, h, p, n, chunk, elem, opts) -> tuple:
+    """(operations, bytes) the scan's gradient needs: each input read once
+    and each output written once; the chunked algorithm's products, its
+    causal Q x Q ones counted on their triangle."""
+    qn = min(chunk, s)
+    nc = -(-s // qn)
+    if kind == "ssd":
+        per = 5 * qn * p * n + qn * qn * (p + n) + qn * qn * n // h
+        flops = 2 * b * nc * h * per
+        nbytes = 3 * b * s * h * p * elem + 2 * b * s * h * 4 + 4 * b * s * n * elem
+        if opts.get("h0"):
+            nbytes += 3 * b * h * p * n * 4
+        return flops, nbytes
+    per = 5 * qn * p * p + 5 * qn * qn * p // 2
+    flops = 2 * b * h * nc * per
+    nbytes = 6 * b * s * h * p * elem + b * s * h * p * 4 + 4 * b * s * h * 4
+    if opts.get("state"):
+        nbytes += 5 * b * h * (p * p + p + 1) * 4
+    return flops, nbytes
+
+
+def scan_backward_cases(card: str) -> dict:
+    """(a): each scan backward kernel against its plain backward, per tensor
+    by BWD_TOL's rule, two calls bit-equal; times beside the bound."""
+    from repro_torch.kernels import mlstm_scan_bwd as mlb
+    from repro_torch.kernels import ssd_scan_bwd as ssb
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    bw, _ = memory_rate(card)
+    out = {"ssd_scan_bwd": [], "mlstm_scan_bwd": []}
+    for kind, label, b, s, h, p, n, chunk, dtype, opts in SCAN_BWD_CASES:
+        name = f"{kind}_scan_bwd"
+        mod = ssb if kind == "ssd" else mlb
+        args = scan_bwd_inputs(gen, kind, b, s, h, p, n, dtype, opts)
+
+        def kernel(fn=getattr(mod, name), args=args, chunk=chunk):
+            return fn(*args, block_q=chunk)
+
+        def plain(fn=getattr(mod, name + "_plain"), args=args, chunk=chunk):
+            return fn(*args, block_q=chunk)
+
+        def flat(r):
+            """The gradients as one list (mLSTM's entering state's unpacked)."""
+            r = [*r[:5], *(r[5] or ())] if kind == "mlstm" else r
+            return [t for t in r if t is not None]
+
+        got = flat(kernel())
+        again = flat(kernel())
+        torch.cuda.synchronize()
+        want = flat(plain())
+        tol = BWD_TOL[dtype]
+        excess = _bwd_excess(got, want, tol)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        if excess > 0:
+            fail(f"train: {name} {label}: kernel differs from the plain backward by "
+                 f"{excess} past the rule (max {err})")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"train: {name} {label}: two calls differ")
+        del got, again, want
+        k_ms = device_ms(kernel, 3)
+        launch_ms = split_kernels(device_profile(kernel)["per_launch"], SCAN_BWD_PASSES[name])
+        p_ms = device_ms(plain, 1)
+        flops, nbytes = scan_bwd_work(kind, b, s, h, p, n, chunk,
+                                      torch.finfo(dtype).bits // 8, opts)
+        peak, _ = op_rate(card, dtype)
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
+        row = {
+            "case": label, "shape": [b, s, h, p, n, chunk], "options": opts,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "excess": excess, "bit_equal_calls": True, "ms": k_ms["ms"],
+            "plain_ms": p_ms["ms"], "library_ms": None,
+            "queued": k_ms["queued"] and p_ms["queued"], "flops": flops, "bytes": nbytes,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "launch_ms": launch_ms,
+        }
+        log(f"train {name} {label} {row['shape']} {row['dtype']} {opts}: ms={row['ms']:.4f} "
+            f"launch_ms={launch_ms} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"plain_ms={row['plain_ms']:.3f} queued={row['queued']} max_abs_err={err} "
+            f"excess={excess}")
+        out[name].append(row)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 class ShadowBackward:
     """While entered, every call of the backward kernel through autograd also
     runs autograd of the plain version on the same inputs and holds the
@@ -3160,9 +3347,7 @@ def olmo_train(card: str) -> dict:
     counts = ops.launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     shutil.rmtree(ckpt, ignore_errors=True)
-    want = {"flash_attention": cfg.n_layers * n_steps,
-            "flash_attention_bwd": cfg.n_layers * n_steps,
-            "decode_attention": 0, "ssd_scan": 0, "mlstm_scan": 0}
+    want = train_launches(cfg, n_steps)
     if counts != want:
         fail(f"train: kernel launches {counts}, expected {want}")
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
@@ -3254,6 +3439,25 @@ def olmo_train(card: str) -> dict:
     return row
 
 
+def train_launches(cfg, steps: int = 1) -> dict:
+    """The model kernels' launches in ``steps`` train steps of ``cfg``: each
+    forward kernel once a layer that runs it, its backward kernel as often;
+    an encoder-decoder's encoder, self- and cross-attention; MLA none."""
+    flash = ssd = mlstm = 0
+    if cfg.family in ("encdec", "audio"):
+        flash = cfg.n_enc_layers + 2 * cfg.n_layers
+    elif cfg.family == "hybrid":
+        ssd = cfg.n_layers
+        flash = -(-cfg.n_layers // cfg.shared_attn_every) - 1
+    elif cfg.family == "ssm":
+        mlstm = cfg.n_layers
+    elif cfg.mla is None:
+        flash = cfg.n_layers
+    return {"flash_attention": flash * steps, "flash_attention_bwd": flash * steps,
+            "decode_attention": 0, "ssd_scan": ssd * steps, "ssd_scan_bwd": ssd * steps,
+            "mlstm_scan": mlstm * steps, "mlstm_scan_bwd": mlstm * steps}
+
+
 def _grads_of_step(cfg, plain: bool) -> tuple:
     """(loss, grad norm, {name: grad}, launches) of a reduced f32 step's
     backward on the card, kernels or (``plain``) plain versions."""
@@ -3283,22 +3487,16 @@ def _grads_of_step(cfg, plain: bool) -> tuple:
 
 
 def reduced_steps() -> list:
-    """(c) and (d): reduced f32 steps against ops.plain(); the scans raise."""
+    """(c): reduced f32 steps, kernels against ops.plain()."""
     from repro_torch.configs import registry
-    from repro_torch.optim import adamw
-    from repro_torch.models.model import build_model
-    from repro_torch.train import steps
 
     rows = []
     for arch in TRAIN_ARCHS:
         cfg = registry.get(arch).reduced()
         loss, gn, grads, counts = _grads_of_step(cfg, plain=False)
         p_loss, p_gn, p_grads, p_counts = _grads_of_step(cfg, plain=True)
-        n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family in ("encdec", "audio")
-                  else 0 if cfg.mla is not None else cfg.n_layers)
-        if counts["flash_attention"] != n_attn or counts["flash_attention_bwd"] != n_attn:
-            fail(f"train (reduced {arch}): launches {counts}, {n_attn} of each flash "
-                 "kernel expected")
+        if counts != train_launches(cfg):
+            fail(f"train (reduced {arch}): launches {counts}, expected {train_launches(cfg)}")
         if any(p_counts.values()):
             fail(f"train (reduced {arch}): plain step launched {p_counts}")
         leaf = max(float((grads[n].float() - g.float()).abs().max())
@@ -3315,19 +3513,63 @@ def reduced_steps() -> list:
         if not held:
             fail(f"train (reduced {arch}): the step differs from ops.plain(): {row}")
         rows.append(row)
-    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
-        cfg = registry.get(arch).reduced()
-        model = build_model(cfg, seed=SEED)
-        step = steps.make_train_step(cfg)
-        opt = adamw.init_state(dict(model.named_parameters()))
-        try:
-            step(model, opt, _train_batch(cfg, 32, 2))
-        except NotImplementedError as exc:
-            log(f"train reduced {arch}: raises NotImplementedError ({exc})")
-            rows.append({"arch": arch, "raises": str(exc)})
-        else:
-            fail(f"train (reduced {arch}): the step ran without a backward kernel")
     return rows
+
+
+def scan_train(card: str, arch: str, batch: int, bwd_ms: float) -> dict:
+    """(d): the published zamba2-1.2b or xlstm-1.3b trained through the
+    launcher at repro's train_4k length; each step runs every scan layer's
+    forward and backward kernel once.  ``bwd_ms``: the scan backward's
+    device ms a call at this train shape, from (a)."""
+    from repro_torch.configs import base, registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    cfg = registry.get(arch)
+    seq, n_steps = 4096, SCAN_TRAIN_STEPS
+    ckpt = OUT_DIR / "scan_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    losses, mon = launch.main([
+        "--arch", arch, "--full-size", "--seq-len", str(seq), "--global-batch",
+        str(batch), "--steps", str(n_steps), "--warmup-steps", "2", "--ckpt-dir", str(ckpt),
+    ])
+    main_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    want = train_launches(cfg, n_steps)
+    if counts != want:
+        fail(f"train {arch}: kernel launches {counts}, expected {want}")
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
+        fail(f"train {arch}: losses {losses}")
+    step_s = [dt for _, dt in mon.times]
+    warm_s = statistics.median(step_s[1:])
+    tokens = seq * batch
+    flops = base.model_flops(cfg, base.ShapeConfig("train", "train", seq, batch))
+    peak, peak_name = op_rate(card, torch.bfloat16)
+    scan = "ssd_scan" if cfg.family == "hybrid" else "mlstm_scan"
+    per_step = {k: v // n_steps for k, v in counts.items()}
+    row = {
+        "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "seq_len": seq,
+        "global_batch": batch, "steps": n_steps, "losses": losses, "main_s": main_s,
+        "step_s": step_s, "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
+        "model_flops_per_step": flops, "peak_rate": peak_name, "mfu": flops / warm_s / peak,
+        "peak_cuda_mb": peak_mb, "launches": counts, "launches_per_step": per_step,
+        # the scan backward's share of a warm step: its launches a step times
+        # its device ms a call at this shape, (a)
+        "scan_bwd_ms_per_step": per_step[scan + "_bwd"] * bwd_ms,
+        "scan_bwd_share": per_step[scan + "_bwd"] * bwd_ms / (warm_s * 1e3),
+    }
+    log(f"train {arch} full size, {batch} x {seq} tokens, {n_steps} steps: losses={losses} "
+        f"warm step {warm_s:.3f} s, {row['tokens_per_s']:.0f} tok/s, MFU {row['mfu']:.4f} of "
+        f"{peak_name}; peak_cuda_MB={peak_mb:.1f}; launches a step {per_step}; the scan "
+        f"backward {row['scan_bwd_ms_per_step']:.1f} ms a step ({row['scan_bwd_share']:.3f})")
+    return row
 
 
 def example_and_resume() -> dict:
@@ -3364,13 +3606,20 @@ def example_and_resume() -> dict:
 def train_phase(card: str) -> dict:
     t = time.perf_counter()
     cases = backward_cases(card)
+    scan_cases = scan_backward_cases(card)
     olmo = olmo_train(card)
     reduced = reduced_steps()
+    scans = [scan_train(card, arch, batch,
+                        scan_cases[("ssd" if arch.startswith("zamba2") else "mlstm")
+                                   + "_scan_bwd"][0]["ms"])
+             for arch, batch in SCAN_TRAINS]
     rest = example_and_resume()
     seconds = time.perf_counter() - t
     log(f"train: phase 17 in {seconds:.1f} s")
-    return {"backward": cases, "olmo": olmo, "reduced": reduced, **rest,
-            "launches": olmo["launches"], "seconds": seconds}
+    launches = {k: olmo["launches"][k] + sum(r["launches"][k] for r in scans)
+                for k in olmo["launches"]}
+    return {"backward": cases, **scan_cases, "olmo": olmo, "reduced": reduced,
+            "scan_trains": scans, **rest, "launches": launches, "seconds": seconds}
 
 
 def main() -> None:
@@ -3389,8 +3638,10 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import mlstm_scan_bwd as mlb
     from repro_torch.kernels import segment_reduce as seg
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssd_scan_bwd as ssb
 
     # 1. card
     kind = torch.cuda.get_device_name(0)
@@ -3493,8 +3744,8 @@ def main() -> None:
     # launches counted from here on
     families = families_phase()
 
-    # 17. train olmo-1b at its published size, and the backward kernel;
-    # attention launches counted from here on
+    # 17. train olmo-1b, zamba2-1.2b and xlstm-1.3b at their published
+    # size, and the backward kernels; their launches counted from here on
     train = train_phase(kind)
 
     main_case = cases[0]
@@ -3519,7 +3770,9 @@ def main() -> None:
     model_kernels = ((fa, flash_rows, (serve, families, train)),
                      (fab, train["backward"], (train,)),
                      (dec, decode_rows, (serve, families)),
-                     (ssd, ssd_rows, (zamba2,)), (ms, mlstm_rows, (xlstm,)))
+                     (ssd, ssd_rows, (zamba2, train)), (ms, mlstm_rows, (xlstm, train)),
+                     (ssb, train["ssd_scan_bwd"], (train,)),
+                     (mlb, train["mlstm_scan_bwd"], (train,)))
     for mod, rows, paths in model_kernels:
         name = mod.__name__.rsplit(".", 1)[-1]
         main_row = rows[0]  # the main path's shape

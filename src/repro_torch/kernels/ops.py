@@ -6,12 +6,15 @@ tensors go to the plain versions too: tests and ``chip_smoke.py`` use it to
 hold the model with kernels against the same model without them on the
 card.  Nothing on the serving or training path enters it.
 
-Gradients: :func:`flash_attention` on a CUDA input that needs one runs
-through :class:`FlashAttention`, whose forward also stores each query
-row's log-sum-exp and whose backward is the hand-written backward kernel
-(:mod:`repro_torch.kernels.flash_attention_bwd`), which reads it.  The SSD
-and mLSTM scans have no backward kernel yet, so on such an input they
-raise; CPU tensors take the plain versions, which autograd differentiates.
+Gradients: each forward kernel on a CUDA input that needs one runs through
+a ``torch.autograd.Function`` whose backward is a hand-written backward
+kernel: :class:`FlashAttention` (its forward also stores each query row's
+log-sum-exp, which :mod:`repro_torch.kernels.flash_attention_bwd` reads),
+:class:`SSDScan` (:mod:`repro_torch.kernels.ssd_scan_bwd`) and
+:class:`MLSTMScan` (:mod:`repro_torch.kernels.mlstm_scan_bwd`).  CPU tensors
+take the plain versions, which autograd differentiates; the Functions also
+run on CPU tensors (their backward then takes the plain backward), which is
+how the CPU tests hold them to that autograd.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mlstm_scan as _mlstm
+from repro_torch.kernels import mlstm_scan_bwd as _mlstm_bwd
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssd_bwd
 
 _plain_depth = 0
 
@@ -78,14 +83,6 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
-def _no_backward(name: str, item: str, *tensors) -> None:
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet (ROADMAP queue 1 item {item}): "
-            "a CUDA input that needs a gradient cannot go through it"
-        )
-
-
 def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
     """q (B,Hq,1,D) over keys [0, kv_len) of k/v (B,Hkv,S,D) -> (B,Hq,1,D)."""
     if _plain_depth:
@@ -93,11 +90,67 @@ def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
     return _decode.decode_attention(q, k, v, kv_len)
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD forward kernel, with the SSD backward kernel as its gradient.
+
+    Saves the inputs only: the backward recomputes the chunk states.  An
+    output nobody differentiates (``h_final`` in training) comes back as
+    None and costs nothing.
+    """
+
+    @staticmethod
+    def forward(ctx, xh, la, Bm, Cm, h0, block_q: int):
+        ctx.set_materialize_grads(False)
+        y, h_final = _ssd.ssd_scan(xh, la, Bm, Cm, h0, block_q=block_q)
+        ctx.save_for_backward(xh, la, Bm, Cm, h0)
+        ctx.block_q = block_q
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        xh, la, Bm, Cm, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xh)
+        dxh, dla, dBm, dCm, dh0 = _ssd_bwd.ssd_scan_bwd(
+            xh, la, Bm, Cm, h0, dy, dh_final, block_q=ctx.block_q
+        )
+        return dxh, dla, dBm, dCm, dh0, None
+
+
+class MLSTMScan(torch.autograd.Function):
+    """The mLSTM forward kernel, with the mLSTM backward kernel as its
+    gradient.  Saves the inputs only: the backward recomputes the states
+    entering each chunk.  ``state`` is passed as its three tensors (or three
+    Nones)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lf, li, C0, n0, m0, block_q: int):
+        ctx.set_materialize_grads(False)
+        state = None if C0 is None else (C0, n0, m0)
+        h, (C, n, m) = _mlstm.mlstm_scan(q, k, v, lf, li, state, block_q=block_q)
+        ctx.save_for_backward(q, k, v, lf, li, C0, n0, m0)
+        ctx.block_q = block_q
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, lf, li, C0, n0, m0 = ctx.saved_tensors
+        state = None if C0 is None else (C0, n0, m0)
+        if dh is None:
+            dh = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dq, dk, dv, dlf, dli, dstate = _mlstm_bwd.mlstm_scan_bwd(
+            q, k, v, lf, li, state, dh, dC, dn, dm, block_q=ctx.block_q
+        )
+        dstate = (None, None, None) if dstate is None else dstate
+        return dq, dk, dv, dlf, dli, *dstate, None
+
+
 def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
     """xh (B,S,H,P), la (B,S,H), Bm/Cm (B,S,N) -> (y, h_final (B,H,P,N) f32)."""
     if _plain_depth:
         return _ssd.ssd_scan_plain(xh, la, Bm, Cm, h0, block_q=block_q)
-    _no_backward("ssd_scan", "9b", xh, la, Bm, Cm, h0)
+    if _needs_grad(xh, la, Bm, Cm, h0):
+        return SSDScan.apply(xh, la, Bm, Cm, h0, block_q)
     return _ssd.ssd_scan(xh, la, Bm, Cm, h0, block_q=block_q)
 
 
@@ -105,7 +158,9 @@ def mlstm_scan(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tuple:
     """q/k/v (B,S,H,D), lf/li (B,S,H) -> (h (B,S,H,D) f32, (C, n, m) f32)."""
     if _plain_depth:
         return _mlstm.mlstm_scan_plain(q, k, v, lf, li, state, block_q=block_q)
-    _no_backward("mlstm_scan", "9c", q, k, v, lf, li, *(state or ()))
+    if _needs_grad(q, k, v, lf, li, *(state or ())):
+        h, C, n, m = MLSTMScan.apply(q, k, v, lf, li, *(state or (None,) * 3), block_q)
+        return h, (C, n, m)
     return _mlstm.mlstm_scan(q, k, v, lf, li, state, block_q=block_q)
 
 
@@ -114,7 +169,9 @@ _KERNELS = {
     "flash_attention_bwd": _flash_bwd,
     "decode_attention": _decode,
     "ssd_scan": _ssd,
+    "ssd_scan_bwd": _ssd_bwd,
     "mlstm_scan": _mlstm,
+    "mlstm_scan_bwd": _mlstm_bwd,
 }
 
 

@@ -7,7 +7,10 @@ whole sequence (training forward and prefill) through
 card, its plain version on the host.  The reference computes the same
 function with ``_ssd_chunked`` in XLA, which rounds the intra-chunk weights
 to bf16; the kernel keeps them in f32 (its bf16 route feeds them to the
-tensor cores as two bf16 parts, about 16 bits).
+tensor cores as two bf16 parts, about 16 bits).  In training the scan's
+gradient (of xh, the log decays that train ``a_log`` and ``dt_bias``, and
+the strided Bm / Cm) is the hand-written SSD backward kernel on the card
+(``ops.SSDScan``), autograd of the plain version on the host.
 
 Decode keeps ``(conv, ssm)`` states and is O(1) per token, a few small
 PyTorch ops; :func:`mamba_decode` updates both states in place (the

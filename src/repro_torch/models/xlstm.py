@@ -12,7 +12,9 @@ A whole sequence (training forward and prefill) runs through
 :func:`repro_torch.kernels.ops.mlstm_scan`: the hand-written chunked scan on
 the card, its plain version on the host; both return the final ``(C~, n~,
 m)`` that decode starts from.  The reference computes the same function
-with ``_chunked_mlstm`` in XLA.
+with ``_chunked_mlstm`` in XLA.  In training the scan's gradient (of q, k,
+v and both gates) is the hand-written mLSTM backward kernel on the card
+(``ops.MLSTMScan``), autograd of the plain version on the host.
 
 Decode is O(1) per token: :func:`mlstm_decode` updates the conv, ``C``,
 ``n`` and ``m`` states in place (the reference returns new ones).  ``C``

@@ -111,7 +111,9 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
 
 

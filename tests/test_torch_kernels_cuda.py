@@ -2,7 +2,8 @@
 
 The attention, SSD and mLSTM kernels are also held, inside the reduced models,
 against the same models routed through the plain versions
-(``ops.plain()``).
+(``ops.plain()``); the backward kernels (flash, SSD, mLSTM) against their
+plain backwards, and the reduced zamba2 and xlstm train on the card.
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip with the
 reason.  The module imports nothing of the JAX package, so it also runs on
@@ -340,20 +341,134 @@ def test_ops_flash_attention_runs_the_backward_kernel_under_autograd(card):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_scans_without_a_backward_kernel_raise_under_autograd(card, arch):
+def test_reduced_scan_models_train_on_the_card(card, arch):
+    """A reduced zamba2 / xlstm train step on the card: finite loss and
+    gradients, and each scan's forward and backward kernels once a layer."""
     from repro_torch.optim import adamw
     from repro_torch.train.steps import make_train_step
 
     cfg = registry.get(arch).reduced()
     model = build_model(cfg, device=card, seed=0)
     step = make_train_step(cfg)
-    tokens = torch.zeros((2, 16), dtype=torch.long, device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=card)
     opt = adamw.init_state(dict(model.named_parameters()))
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        step(model, opt, {"tokens": tokens, "labels": tokens})
+    opt, metrics = step(model, opt, {"tokens": tokens, "labels": tokens})
+    torch.cuda.synchronize()
     counts = ops.launch_counts()
-    assert counts["ssd_scan"] == counts["mlstm_scan"] == 0
+    scan = "ssd_scan" if arch == "zamba2-1.2b" else "mlstm_scan"
+    other = "mlstm_scan" if scan == "ssd_scan" else "ssd_scan"
+    assert counts[scan] == counts[scan + "_bwd"] == cfg.n_layers
+    assert counts[other] == counts[other + "_bwd"] == 0
+    assert bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+def _scan_bwd_close(got, want, dtype):
+    """Per tensor: bf16 rtol 2e-2, atol 2e-2 x max|plain| (the sums run in
+    another order and the gradients round to bf16); f32 1e-4 likewise."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,N,Q,with_h0,strided",
+    [
+        (1, 256, 8, 64, 64, 128, False, True),  # zamba2's head and state
+        (1, 200, 4, 64, 64, 128, True, False),  # a ragged last chunk
+        (2, 64, 8, 32, 16, 16, True, True),  # the reduced zamba2
+        (1, 1, 2, 32, 16, 128, False, False),  # one position
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain_version(card, B, S, H, P, N, Q, with_h0, strided,
+                                              dtype):
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    rng = np.random.default_rng(S + P + N)
+    xh, la, bm, cm = _ssd_inputs(rng, B, S, H, P, N, dtype, card)
+    if strided:
+        wide = torch.cat([bm, cm, torch.zeros_like(bm[..., :3])], dim=-1)
+        bm, cm = wide[..., :N], wide[..., N:2 * N]
+    h0 = _randn(rng, (B, H, P, N), torch.float32, card) * 0.3 if with_h0 else None
+    dhf = _randn(rng, (B, H, P, N), torch.float32, card) if with_h0 else None
+    dy = _randn(rng, (B, S, H, P), dtype, card)
+    sb.reset_launch_count()
+    got = sb.ssd_scan_bwd(xh, la, bm, cm, h0, dy, dhf, block_q=Q)
+    again = sb.ssd_scan_bwd(xh, la, bm, cm, h0, dy, dhf, block_q=Q)
+    torch.cuda.synchronize()
+    assert sb.launch_count() == 2
+    want = sb.ssd_scan_bwd_plain(xh, la, bm, cm, h0, dy, dhf, block_q=Q)
+    _scan_bwd_close(got, want, dtype)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize(
+    "B,S,H,D,Q,with_state,steep",
+    [
+        (1, 256, 2, 1024, 128, False, False),  # xlstm-1.3b's head dim
+        (1, 200, 2, 64, 128, True, False),  # a ragged last chunk, a state
+        (2, 48, 2, 96, 16, True, True),  # steep gates, a head dim off 128
+        (1, 1, 1, 32, 128, False, False),  # one position
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_bwd_kernel_matches_plain_version(card, B, S, H, D, Q, with_state, steep,
+                                                dtype):
+    from repro_torch.kernels import mlstm_scan_bwd as mb
+
+    rng = np.random.default_rng(S + D)
+    q, k, v, lf, li = _mlstm_inputs(rng, B, S, H, D, dtype, card, steep=steep)
+    state = dfin = None
+    if with_state:
+        state = (0.1 * _randn(rng, (B, H, D, D), torch.float32, card),
+                 0.1 * _randn(rng, (B, H, D), torch.float32, card),
+                 _randn(rng, (B, H), torch.float32, card))
+        dfin = (_randn(rng, (B, H, D, D), torch.float32, card),
+                _randn(rng, (B, H, D), torch.float32, card),
+                _randn(rng, (B, H), torch.float32, card))
+    dh = _randn(rng, (B, S, H, D), torch.float32, card)
+    fin = dfin or (None, None, None)
+    mb.reset_launch_count()
+    got = mb.mlstm_scan_bwd(q, k, v, lf, li, state, dh, *fin, block_q=Q)
+    again = mb.mlstm_scan_bwd(q, k, v, lf, li, state, dh, *fin, block_q=Q)
+    torch.cuda.synchronize()
+    assert mb.launch_count() == 2
+    want = mb.mlstm_scan_bwd_plain(q, k, v, lf, li, state, dh, *fin, block_q=Q)
+
+    def flat(r):
+        return [*r[:5], *(r[5] or ())]
+
+    _scan_bwd_close(flat(got), flat(want), dtype)
+    assert all(torch.equal(g, a) for g, a in zip(flat(got), flat(again)))
+
+
+def test_ops_scans_run_the_backward_kernels_under_autograd(card):
+    rng = np.random.default_rng(12)
+    xh, la, bm, cm = _ssd_inputs(rng, 1, 64, 4, 32, 16, torch.bfloat16, card)
+    q, k, v, lf, li = _mlstm_inputs(rng, 1, 40, 2, 64, torch.bfloat16, card)
+    ssd_leaves = [t.clone().requires_grad_(True) for t in (xh, la, bm, cm)]
+    mlstm_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lf, li)]
+    ops.reset_launch_counts()
+    y, _ = ops.ssd_scan(*ssd_leaves, block_q=16)
+    h, _ = ops.mlstm_scan(*mlstm_leaves, block_q=16)
+    (y.float().sum() + h.sum()).backward()
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == counts["ssd_scan_bwd"] == 1
+    assert counts["mlstm_scan"] == counts["mlstm_scan_bwd"] == 1
+    from repro_torch.kernels import mlstm_scan_bwd as mb
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    want = sb.ssd_scan_bwd_plain(xh, la, bm, cm, None, torch.ones_like(xh), block_q=16)
+    _scan_bwd_close([t.grad for t in ssd_leaves], want[:4], torch.bfloat16)
+    want = mb.mlstm_scan_bwd_plain(q, k, v, lf, li, None, torch.ones_like(h), block_q=16)
+    _scan_bwd_close([t.grad for t in mlstm_leaves], want[:5], torch.bfloat16)
 
 
 @pytest.mark.parametrize(
@@ -539,7 +654,9 @@ def test_ops_plain_routes_the_card_to_plain_versions(card):
         "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, :1], q, q, 16)
@@ -550,7 +667,9 @@ def test_ops_plain_routes_the_card_to_plain_versions(card):
         "flash_attention_bwd": 0,
         "decode_attention": 1,
         "ssd_scan": 1,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 1,
+        "mlstm_scan_bwd": 0,
     }
 
 
@@ -563,7 +682,9 @@ def _launches_per_serve(cfg, n_new: int) -> dict:
             "flash_attention_bwd": 0,
             "decode_attention": (n_new - 1) * n_shared,
             "ssd_scan": cfg.n_layers,
+            "ssd_scan_bwd": 0,
             "mlstm_scan": 0,
+            "mlstm_scan_bwd": 0,
         }
     if cfg.family == "ssm":
         return {
@@ -571,14 +692,18 @@ def _launches_per_serve(cfg, n_new: int) -> dict:
             "flash_attention_bwd": 0,
             "decode_attention": 0,
             "ssd_scan": 0,
+            "ssd_scan_bwd": 0,
             "mlstm_scan": cfg.n_layers,
+            "mlstm_scan_bwd": 0,
         }
     return {
         "flash_attention": cfg.n_layers,
         "flash_attention_bwd": 0,
         "decode_attention": (n_new - 1) * cfg.n_layers,
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
 
 
@@ -618,7 +743,9 @@ def test_reduced_zamba2_launch_counts():
         "flash_attention_bwd": 0,
         "decode_attention": 10,
         "ssd_scan": 5,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 0,
+        "mlstm_scan_bwd": 0,
     }
 
 
@@ -630,7 +757,9 @@ def test_reduced_xlstm_launch_counts():
         "flash_attention_bwd": 0,
         "decode_attention": 0,
         "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
         "mlstm_scan": 4,
+        "mlstm_scan_bwd": 0,
     }
 
 
