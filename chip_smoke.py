@@ -9,8 +9,8 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
 2. build — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
    flash backward among them); log
    every kernel's ``ptxas`` registers and spills, and fail unless the
-   flash, flash backward, SSD and mLSTM libraries' SASS holds ``HGMMA``
-   (their bf16 kernels run on the tensor cores);
+   flash, flash backward, SSD, mLSTM and both scan backward libraries'
+   SASS holds ``HGMMA`` (their bf16 kernels run on the tensor cores);
 3. kernel — the segmented-reduce kernel against its plain PyTorch version
    on the card at 2^24 int64 rows (about 4096 spans, one holding half the
    rows), a (2^20, 8) int64 grid and a float64 sum, then spans of exactly
@@ -169,8 +169,10 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    at the reduced shape; mLSTM at xlstm-1.3b's train shape (B 1, S 4096,
    H 4, D 1024, bf16) and at B 2, D 1024 in f32, D 64, ragged S 1000, with an entering
    state and the final state's gradients, and with steep gates; each case's
-   device time, its CUDA kernels' time a launch, bound and the plain
-   backward's time;
+   route (``wgmma`` for bf16, and for the mLSTM at head dims that are
+   multiples of 64; ``simt`` otherwise), device time, its CUDA kernels'
+   time in one call (``SCAN_BWD_PASSES``), bound and the plain backward's
+   time;
    (b) ``python -m repro_torch.launch.train --arch olmo-1b --full-size``,
    2 x 4096 tokens a step, 5 steps (2 of warm-up): exactly 16 flash and 16
    backward launches a step and no other model kernel, seconds a step,
@@ -191,7 +193,10 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    forward and one scan backward launch a layer a step (38 and 48) and the
    shared block's 6 flash and 6 flash-backward launches (zamba2), finite
    losses, seconds a step, tokens/s, the share of 989 TFLOP/s, peak CUDA
-   MB and the scan backward's share of a step; (e) ``python -m
+   MB; then one more step of each profiled by ``torch.profiler`` and split
+   by kernel group (scan backward, scan forward, flash, GEMMs, the rest:
+   elementwise passes and the optimizer; and idle against the warm step),
+   so the scan backward's share of a step is measured; (e) ``python -m
    repro_torch.examples.train_lm`` (the ~100M olmo) for 300 steps, its
    loss falling; (f) a save, then a resume, the resumed losses within
    1e-3 of the uninterrupted run's.
@@ -3013,18 +3018,31 @@ SCAN_BWD_CASES = [
      {"state": True}),
     ("mlstm", "steep gates", 1, 1024, 4, 256, 0, 128, torch.bfloat16, {"steep": True}),
 ]
-#: the scan backwards' CUDA kernels by name
+#: the scan backwards' CUDA kernels by name, each group the SIMT route's
+#: kernel and the tensor-core route's (``_tc``, ``pass_parts``); the SSD's
+#: tensor-core route fuses chunk_mats and chunk_grads into ``chunk_tc``
 SCAN_BWD_PASSES = {
     "ssd_scan_bwd": {
-        "states": r"states_kernel", "passing": r"passing_kernel",
-        "chunk_mats": r"chunk_mats_kernel", "chunk_grads": r"chunk_grads_kernel",
-        "head_sum": r"head_sum_kernel",
+        "states": r"(?<!\w)states_(tc_)?kernel", "passing": r"(?<!\w)passing_(tc_)?kernel",
+        "chunk_mats": r"(?<!\w)chunk_mats_kernel", "chunk_grads": r"(?<!\w)chunk_grads_kernel",
+        "chunk": r"(?<!\w)chunk_tc_kernel", "head_sum": r"(?<!\w)head_sum_kernel",
     },
     "mlstm_scan_bwd": {
-        "gates": r"gates_kernel|final_kernel", "outer": r"outer_kernel",
-        "pass": r"pass_kernel", "z": r"z_kernel", "rows": r"rows_kernel",
-        "dstate": r"dstate_kernel",
+        "gates": r"(?<!\w)(gates|final)_kernel", "outer": r"(?<!\w)outer_(tc_)?kernel",
+        "pass": r"(?<!\w)pass_(parts_)?kernel", "z": r"(?<!\w)z_(tc_)?kernel",
+        "rows": r"(?<!\w)rows_(tc_)?kernel", "dstate": r"(?<!\w)dstate_(tc_)?kernel",
     },
+}
+#: (d): a scan arch's train step on the device clock, by kernel group (the
+#: first group whose pattern matches a kernel's name takes it; "rest" is the
+#: elementwise passes, reductions and the optimizer)
+SCAN_STEP_GROUPS = {
+    "scan_bwd": "|".join(f"(?:{pat})" for passes in SCAN_BWD_PASSES.values()
+                         for pat in passes.values()),
+    "scan_fwd": r"(?<!\w)(state_passing|chunk_states|chunk_outputs|chunk_states_tc|"
+                r"chunk_outputs_tc|gate|w|w_tc|state|state_tc)_kernel",
+    "flash": r"(?<!\w)(flash|flash_tc|dq|dq_tc|dkv|dkv_tc|delta|group_sum)_kernel",
+    "gemm": r"gemm|sm90_xmma|cutlass|nvjet",
 }
 #: the published olmo-1b trained at repro's train_4k sequence length
 TRAIN_ARGV = [
@@ -3252,8 +3270,10 @@ def scan_backward_cases(card: str) -> dict:
         if not all(torch.equal(a, c) for a, c in zip(got, again)):
             fail(f"train: {name} {label}: two calls differ")
         del got, again, want
+        route = mod.kernel_route(dtype) if kind == "ssd" else mod.kernel_route(dtype, p)
         k_ms = device_ms(kernel, 3)
-        launch_ms = split_kernels(device_profile(kernel)["per_launch"], SCAN_BWD_PASSES[name])
+        # each group's device ms in one call, summed over its launches
+        kernel_ms = split_kernels(device_profile(kernel)["kernels"], SCAN_BWD_PASSES[name])
         p_ms = device_ms(plain, 1)
         flops, nbytes = scan_bwd_work(kind, b, s, h, p, n, chunk,
                                       torch.finfo(dtype).bits // 8, opts)
@@ -3261,16 +3281,17 @@ def scan_backward_cases(card: str) -> dict:
         ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
         row = {
             "case": label, "shape": [b, s, h, p, n, chunk], "options": opts,
-            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "dtype": str(dtype).replace("torch.", ""), "route": route, "max_abs_err": err,
             "excess": excess, "bit_equal_calls": True, "ms": k_ms["ms"],
             "plain_ms": p_ms["ms"], "library_ms": None,
             "queued": k_ms["queued"] and p_ms["queued"], "flops": flops, "bytes": nbytes,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "launch_ms": launch_ms,
+            "kernel_ms": kernel_ms,
         }
-        log(f"train {name} {label} {row['shape']} {row['dtype']} {opts}: ms={row['ms']:.4f} "
-            f"launch_ms={launch_ms} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        log(f"train {name} {label} {row['shape']} {row['dtype']} {opts} route={route}: "
+            f"ms={row['ms']:.4f} "
+            f"kernel_ms={kernel_ms} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
             f"plain_ms={row['plain_ms']:.3f} queued={row['queued']} max_abs_err={err} "
             f"excess={excess}")
         out[name].append(row)
@@ -3519,11 +3540,17 @@ def reduced_steps() -> list:
 def scan_train(card: str, arch: str, batch: int, bwd_ms: float) -> dict:
     """(d): the published zamba2-1.2b or xlstm-1.3b trained through the
     launcher at repro's train_4k length; each step runs every scan layer's
-    forward and backward kernel once.  ``bwd_ms``: the scan backward's
-    device ms a call at this train shape, from (a)."""
+    forward and backward kernel once.  Then one step of the same model
+    profiled and split by kernel group (``SCAN_STEP_GROUPS``), so the scan
+    backward's share of the step is measured.  ``bwd_ms``: the scan
+    backward's device ms a call at this train shape, from (a), for the
+    reckoned share beside it."""
     from repro_torch.configs import base, registry
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
 
     cfg = registry.get(arch)
     seq, n_steps = 4096, SCAN_TRAIN_STEPS
@@ -3554,21 +3581,44 @@ def scan_train(card: str, arch: str, batch: int, bwd_ms: float) -> dict:
     peak, peak_name = op_rate(card, torch.bfloat16)
     scan = "ssd_scan" if cfg.family == "hybrid" else "mlstm_scan"
     per_step = {k: v // n_steps for k, v in counts.items()}
+
+    # one more model: a warm step, then a step profiled and split by group
+    model = build_model(cfg, seed=SEED)
+    opt_cfg = adamw.OptConfig(lr=3e-4, warmup_steps=2, total_steps=n_steps)
+    step = steps.make_train_step(cfg, opt_cfg)
+    opt = adamw.init_state(dict(model.named_parameters()))
+    data = _train_batch(cfg, seq, batch)
+    opt, _ = step(model, opt, data)
+    prof = device_profile(lambda: step(model, opt, data))
+    del model, opt, data, step
+    torch.cuda.empty_cache()
+    split = split_kernels(prof["kernels"], SCAN_STEP_GROUPS)
+    split["idle"] = max(0.0, warm_s * 1e3 - prof["device_ms"])
+    shares = {g: ms / (warm_s * 1e3) for g, ms in split.items()}
     row = {
         "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "seq_len": seq,
         "global_batch": batch, "steps": n_steps, "losses": losses, "main_s": main_s,
         "step_s": step_s, "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
         "model_flops_per_step": flops, "peak_rate": peak_name, "mfu": flops / warm_s / peak,
         "peak_cuda_mb": peak_mb, "launches": counts, "launches_per_step": per_step,
-        # the scan backward's share of a warm step: its launches a step times
-        # its device ms a call at this shape, (a)
-        "scan_bwd_ms_per_step": per_step[scan + "_bwd"] * bwd_ms,
-        "scan_bwd_share": per_step[scan + "_bwd"] * bwd_ms / (warm_s * 1e3),
+        # the profiled step by kernel group (device ms; "idle": the warm
+        # step's host time less the kernels') and each group's share of the
+        # warm step; the scan backward's share is split["scan_bwd"]'s
+        "profile": {"device_ms": prof["device_ms"], "launches": prof["launches"],
+                    "top": prof["top"], "split_ms": split, "shares": shares},
+        "scan_bwd_ms_per_step": split["scan_bwd"],
+        "scan_bwd_share": shares["scan_bwd"],
+        # as reckoned before the split: launches a step x (a)'s ms a call
+        "scan_bwd_reckoned_ms": per_step[scan + "_bwd"] * bwd_ms,
     }
     log(f"train {arch} full size, {batch} x {seq} tokens, {n_steps} steps: losses={losses} "
         f"warm step {warm_s:.3f} s, {row['tokens_per_s']:.0f} tok/s, MFU {row['mfu']:.4f} of "
         f"{peak_name}; peak_cuda_MB={peak_mb:.1f}; launches a step {per_step}; the scan "
-        f"backward {row['scan_bwd_ms_per_step']:.1f} ms a step ({row['scan_bwd_share']:.3f})")
+        f"backward {row['scan_bwd_ms_per_step']:.1f} ms a step ({row['scan_bwd_share']:.3f}; "
+        f"reckoned {row['scan_bwd_reckoned_ms']:.1f})")
+    log(f"train {arch} step split (device ms, profiled step of "
+        f"{prof['device_ms']:.1f} ms in {prof['launches']} launches): "
+        + ", ".join(f"{g} {ms:.1f} ({shares[g]:.3f})" for g, ms in split.items()))
     return row
 
 
@@ -3674,7 +3724,8 @@ def main() -> None:
                 f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
                 "bytes spill loads")
     hgmma = {}
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "mlstm_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "mlstm_scan",
+                 "ssd_scan_bwd", "mlstm_scan_bwd"):
         hgmma[name] = sass_count(_build.library_path(name), "HGMMA")
         if not hgmma[name]:
             fail(f"build: the {name} library's SASS holds no HGMMA: its bf16 "

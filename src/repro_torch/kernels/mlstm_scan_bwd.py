@@ -23,9 +23,16 @@ with the inputs: the gradients of the final ``(C̃, ñ)`` (and of ``m``, if
 asked) also reach the gates along the one path that ``m`` takes, from the
 position (or the entering ``m``) that won its maxima.
 
-One call runs nine CUDA kernels (all products on the CUDA cores in f32,
-whatever the input dtype; no atomics, so two calls give equal bits; the
-plain version below is the same math, chunk by chunk):
+One call runs nine CUDA kernels (no atomics, so two calls give equal
+bits; the plain version below is the same math, chunk by chunk), by one of
+two routes (:func:`kernel_route`, reported by :func:`last_route`):
+``"wgmma"`` (bf16 at head dims that are multiples of 64) runs the products
+of kernels 2, 4, 5, 6 and 8 on the tensor cores, bf16 in and f32
+accumulated, each f32 operand (with its row scalar applied) split into
+bf16 ``hi + lo`` parts, about 16 significant bits, and the state passes
+write the states and their gradients as those parts in the layout the
+products read; ``"simt"`` (f32, and bf16 at the other head dims) runs
+every product on the CUDA cores in f32:
 
 1. a gate pass, one warp per (b, h): ``cumF``, ``g`` and each chunk's
    entering ``m``, as the forward's gate pass;
@@ -33,7 +40,8 @@ plain version below is the same math, chunk by chunk):
    block per (b, h, chunk, 128 × 128 tile of C̃);
 3. the state pass in chunk order: the state entering each chunk, written
    over its update (the ``D × D`` slab of every chunk, 4 MiB a (b, h,
-   chunk): 0.5 GiB at xlstm-1.3b's train shape of B 1, S 4096, transient);
+   chunk): 0.5 GiB at xlstm-1.3b's train shape of B 1, S 4096, transient;
+   on the ``"wgmma"`` route as bf16 parts into a slab of its own);
 4. ``Z = dh C̃ᵀ`` for each chunk (the carry's share of ``dq``) and ``q · Z``
    by tile, one block per (b, h, chunk, 128 columns);
 5. a row pass, one block per (b, h, chunk): ``S = q kᵀ``, ``dh vᵀ``, the
@@ -57,7 +65,9 @@ the gradient ``dh (B,S,H,D)`` f32 of h and optionally ``dC``, ``dn``,
 ``dm`` of the final state -> ``(dq, dk, dv, dlf, dli, dstate)``: ``dq``,
 ``dk``, ``dv`` in the input dtype, ``dlf``, ``dli`` f32, ``dstate = (dC,
 dn, dm)`` f32 for the entering state (None without one).  Head dims are
-multiples of 32 up to 1024; chunks up to 128.
+multiples of 32 up to 1024; chunks up to 128.  The ``"wgmma"`` route reads
+q, k, v and dh in 16-byte pieces: a layout whose rows are not 16-byte
+aligned with a unit last stride is copied first.
 
 :func:`mlstm_scan_bwd` is the wrapper.  For tensors on the CPU it runs
 :func:`mlstm_scan_bwd_plain`; for CUDA tensors it launches the kernels or
@@ -77,6 +87,7 @@ from repro_torch.kernels.mlstm_scan import (
     NEG_INF,
     _chunk,
     _DTYPE_CODE,
+    _vector_rows,
     check_inputs,
 )
 
@@ -87,6 +98,7 @@ SOURCE = "src/repro_torch/csrc/mlstm_scan_bwd.cu"
 TILE = 128
 
 _launches = 0
+_last_route = None
 
 
 def launch_count() -> int:
@@ -94,9 +106,15 @@ def launch_count() -> int:
     return _launches
 
 
+def last_route():
+    """The route (:func:`kernel_route`) the last launching call took, or None."""
+    return _last_route
+
+
 def reset_launch_count() -> None:
-    global _launches
+    global _launches, _last_route
     _launches = 0
+    _last_route = None
 
 
 def check_grads(q, dh, dfinal) -> None:
@@ -261,15 +279,35 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def scratch_floats(b, s, h, d, qn) -> int:
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route a call of the kernels takes for q, k, v of ``dtype``.
+
+    ``"wgmma"``: bf16 at head dims that are multiples of 64 (the products on
+    the tensor cores, 64-column panels).  ``"simt"``: f32, and bf16 at the
+    other head dims (the products on the CUDA cores in f32).
+    """
+    return "wgmma" if dtype == torch.bfloat16 and head_dim % 64 == 0 else "simt"
+
+
+def scratch_floats(b, s, h, d, qn, route: str = "simt") -> int:
     """f32 elements of one call's scratch (see ``csrc/mlstm_scan_bwd.cu``)."""
     nc = -(-s // qn)
     sp = nc * qn
     bh = b * h
     tiles = -(-d // TILE)
-    pass_blocks = -(-d * d // 1024) + 1
+    dd = d * d
+    if route == "wgmma":
+        # the states as bf16 parts: D rows padded to the 128-row panels; the
+        # updates' slab then holds the leaving gradients' parts, and a third
+        # slab the entering states'
+        pslab = tiles * TILE * d
+        pass_blocks = -(-pslab // 1024) + 1
+        slabs = bh * nc * (2 * pslab + dd)
+    else:
+        pass_blocks = -(-dd // 1024) + 1
+        slabs = 2 * bh * nc * dd  # the entering states; the leaving states' gradients
     return (
-        2 * bh * nc * d * d  # the entering states; the leaving states' gradients
+        slabs
         + 2 * bh * nc * d  # the same for ñ
         + 3 * bh * sp * d  # Z; the row pass's shares of dk and dv
         + bh * sp * (8 + 2 * tiles)  # per position scalars; q·Z and dwgt by tile
@@ -298,11 +336,17 @@ def mlstm_scan_bwd(q, k, v, lf, li, state, dh, dC=None, dn=None, dm=None, *,
     qn = _chunk(block_q, s)
     if qn > MAX_CHUNK:
         raise ValueError(f"the mlstm_scan_bwd kernel takes chunks up to {MAX_CHUNK}, got {qn}")
-    global _launches
+    global _launches, _last_route
     lib = _library()
-    # the kernels read every operand element by element through its
-    # (b, s, h) strides; a unit stride along D is asked for
-    q, k, v, dh = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, dh))
+    route = kernel_route(q.dtype, d)
+    # the SIMT kernels read every operand element by element through its
+    # (b, s, h) strides, so a unit stride along D is asked for; the
+    # tensor-core route copies rows in 16-byte pieces
+    fits = _vector_rows if route == "wgmma" else (lambda t: t.stride(-1) == 1)
+    q, k, v, dh = (
+        t if fits(t) else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v, dh)
+    )
     state = None if state is None else tuple(t.contiguous() for t in state)
     dC, dn, dm = (None if t is None else t.contiguous() for t in (dC, dn, dm))
     dev = q.device
@@ -314,7 +358,8 @@ def mlstm_scan_bwd(q, k, v, lf, li, state, dh, dC=None, dn=None, dm=None, *,
         dstate = (torch.empty((b, h, d, d), dtype=torch.float32, device=dev),
                   torch.empty((b, h, d), dtype=torch.float32, device=dev),
                   torch.empty((b, h), dtype=torch.float32, device=dev))
-    scratch = torch.empty(scratch_floats(b, s, h, d, qn), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats(b, s, h, d, qn, route), dtype=torch.float32,
+                          device=dev)
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dh.stride()[:3]]
     strides += [*lf.stride(), *li.stride()]
     strides = (ctypes.c_int64 * 18)(*strides)
@@ -337,4 +382,5 @@ def mlstm_scan_bwd(q, k, v, lf, li, state, dh, dC=None, dn=None, dm=None, *,
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"mlstm_scan_bwd kernel failed: CUDA error {err}: {msg}")
     _launches += 1
+    _last_route = route
     return dq, dk, dv, dlf, dli, dstate

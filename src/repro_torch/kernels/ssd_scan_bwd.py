@@ -26,18 +26,27 @@ runs four passes, and this module's plain version is split the same way:
    and ``M = L ⊙ (dy xᵀ)``, ``dx = Wᵀ dy + exp(cum_end - cum) ⊙ B dSᵀ``,
    each head's ``dB = Mᵀ C + exp(cum_end - cum) ⊙ x dS`` and ``dC = M B +
    exp(cum) ⊙ dy h_c``, and ``dcum`` from ``L``, the carry term, ``S_c``
-   and the decay; ``dla`` is its reverse prefix sum in the chunk.  The
-   kernel runs it as two CUDA kernels a (b, chunk, head): one forms the
-   ``Q × Q`` matrices ``W`` and ``M`` into scratch and the sums of
-   ``(C Bᵀ) ⊙ M`` by row and column, one the products above;
+   and the decay; ``dla`` is its reverse prefix sum in the chunk;
 4. **head sum** (:func:`head_sum_plain`): ``dBm`` and ``dCm`` are the sums
    over heads of the per-head ``dB`` and ``dC`` (the heads share Bm and
    Cm), added in head order from scratch: no atomics, so two calls give
    equal bits.
 
-Every product runs on the CUDA cores in f32, whatever the input dtype
-(bf16 inputs are read and widened): a simple kernel, right first.  A
-padded tail (zero input, zero log decay) contributes nothing, and no
+Two routes (:func:`kernel_route`, reported by :func:`last_route`):
+
+- ``"wgmma"`` (bf16): the products on the tensor cores, bf16 in and f32
+  accumulated.  ``C Bᵀ`` and ``dy xᵀ`` are single bf16 products (exact
+  inputs); ``Wᵀ dy``, ``Mᵀ C``, ``M B``, ``B dSᵀ``, ``x dS``, ``dy h_c``
+  and the chunk states' products split their f32 operand into bf16
+  ``hi + lo`` parts (about 16 significant bits; the state passing writes
+  ``h_c`` and ``dS`` as those parts).  Pass 3 is one CUDA kernel a (b,
+  chunk, group of 8 heads) that keeps ``W`` and then ``M`` on chip as bf16
+  parts and never writes them to scratch;
+- ``"simt"`` (f32): every product on the CUDA cores in f32, pass 3 as two
+  CUDA kernels a (b, chunk, head): one forms ``W`` and ``M`` into scratch
+  and the sums of ``(C Bᵀ) ⊙ M`` by row and column, one the products above.
+
+A padded tail (zero input, zero log decay) contributes nothing, and no
 padded copy of an input is made.
 
 The contract: the forward's ``xh (B,S,H,P)``, ``la (B,S,H)`` f32,
@@ -46,12 +55,14 @@ the gradient ``dy (B,S,H,P)`` of y and optionally ``dh_final (B,H,P,N)``
 f32 -> ``(dxh, dla, dBm, dCm, dh0)``, each in its input's dtype (``dla``
 and ``dh0`` f32; ``dh0`` None without ``h0``).  The kernel takes the
 forward kernel's shapes: P in {32, 64}, N in {16, 32, 64}, chunks up to
-128.
+128.  The ``"wgmma"`` route reads xh, Bm, Cm and dy in 16-byte pieces: a
+layout whose rows are not 16-byte aligned with a unit last stride is
+copied first.
 
 :func:`ssd_scan_bwd` is the wrapper.  For tensors on the CPU it runs
 :func:`ssd_scan_bwd_plain`; for CUDA tensors it launches the kernels or
 raises: there is no fallback.  Each call adds one to :func:`launch_count`
-(one call is five CUDA kernels).
+(one call is five CUDA kernels, four on the ``"wgmma"`` route).
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from repro_torch.kernels.ssd_scan import (
     _chunk,
     _chunked,
     _DTYPE_CODE,
+    _vector_rows,
     check_inputs,
     ssd_chunk_states,
     ssd_state_passing,
@@ -77,6 +89,7 @@ from repro_torch.kernels.ssd_scan import (
 SOURCE = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 
 _launches = 0
+_last_route = None
 
 
 def launch_count() -> int:
@@ -84,9 +97,15 @@ def launch_count() -> int:
     return _launches
 
 
+def last_route():
+    """The route (:func:`kernel_route`) the last launching call took, or None."""
+    return _last_route
+
+
 def reset_launch_count() -> None:
-    global _launches
+    global _launches, _last_route
     _launches = 0
+    _last_route = None
 
 
 def check_grads(xh, Bm, dy, dh_final) -> None:
@@ -223,13 +242,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def scratch_floats(b, s, h, p, n, q) -> int:
-    """f32 elements of one call's scratch: per (b, chunk, head) two P × N
-    states, the Q × Q matrices W and M, per-head dB and dC (Q × N each),
-    the row-and-column sums of T, the decay and its gradient by block of
-    the state passing (up to 4)."""
+def kernel_route(dtype: torch.dtype) -> str:
+    """The route a call of the kernels takes: ``"wgmma"`` for bf16 (the
+    products on the tensor cores), ``"simt"`` for f32 (on the CUDA cores)."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def scratch_floats(b, s, h, p, n, q, route: str = "simt") -> int:
+    """f32 elements of one call's scratch.
+
+    ``"simt"``: per (b, chunk, head) two P × N states, the Q × Q matrices W
+    and M, per-head dB and dC (Q × N each), the row-and-column sums of T,
+    the decay and its gradient by block of the state passing (up to 4).
+    ``"wgmma"``: per (b, chunk, head) two P × N states, the entering state
+    and its gradient as bf16 hi + lo images (64 × 64 × 2 parts, 16 KB
+    each), the decay and its gradient by block (4); per (b, chunk, group of
+    heads) the group's dB and dC (Q × N each), room for groups of one head
+    (the kernel halves its group of 8 while the blocks would not fill the
+    card).
+    """
     nc = -(-s // q)
     blocks = b * nc * h
+    if route == "wgmma":
+        return blocks * (2 * p * n + 2 * 64 * 64 + 2 * q * n + 5)
     return blocks * (2 * p * n + 2 * q * q + 2 * q * n + q + 5)
 
 
@@ -258,14 +293,18 @@ def ssd_scan_bwd(xh, la, Bm, Cm, h0, dy, dh_final=None, *, block_q: int = 128) -
     q = _chunk(block_q, s)
     if q > MAX_CHUNK:
         raise ValueError(f"the ssd_scan_bwd kernel takes chunks up to {MAX_CHUNK}, got {q}")
-    # the kernels read every operand element by element through its strides,
-    # so only a unit stride along P / N is asked for
+    route = kernel_route(xh.dtype)
+    # the SIMT kernels read every operand element by element through its
+    # strides, so only a unit stride along P / N is asked for; the
+    # tensor-core route copies rows in 16-byte pieces
+    fits = _vector_rows if route == "wgmma" else (lambda t: t.stride(-1) == 1)
     xh, Bm, Cm, dy = (
-        t if t.stride(-1) == 1 else t.contiguous() for t in (xh, Bm, Cm, dy)
+        t if fits(t) else t.clone(memory_format=torch.contiguous_format)
+        for t in (xh, Bm, Cm, dy)
     )
     h0 = None if h0 is None else h0.contiguous()
     dh_final = None if dh_final is None else dh_final.contiguous()
-    global _launches
+    global _launches, _last_route
     lib = _library()
     dev = xh.device
     dxh = torch.empty((b, s, h, p), dtype=xh.dtype, device=dev)
@@ -273,7 +312,8 @@ def ssd_scan_bwd(xh, la, Bm, Cm, h0, dy, dh_final=None, *, block_q: int = 128) -
     dBm = torch.empty((b, s, n), dtype=xh.dtype, device=dev)
     dCm = torch.empty((b, s, n), dtype=xh.dtype, device=dev)
     dh0 = None if h0 is None else torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty(scratch_floats(b, s, h, p, n, q), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats(b, s, h, p, n, q, route), dtype=torch.float32,
+                          device=dev)
     strides = [*xh.stride()[:3], *la.stride(), *Bm.stride()[:2], *Cm.stride()[:2]]
     strides += dy.stride()[:3]
     strides = (ctypes.c_int64 * 13)(*strides)
@@ -307,4 +347,5 @@ def ssd_scan_bwd(xh, la, Bm, Cm, h0, dy, dh_final=None, *, block_q: int = 128) -
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"ssd_scan_bwd kernel failed: CUDA error {err}: {msg}")
     _launches += 1
+    _last_route = route
     return dxh, dla, dBm, dCm, dh0

@@ -384,6 +384,8 @@ def _scan_bwd_close(got, want, dtype):
         (1, 200, 4, 64, 64, 128, True, False),  # a ragged last chunk
         (2, 64, 8, 32, 16, 16, True, True),  # the reduced zamba2
         (1, 1, 2, 32, 16, 128, False, False),  # one position
+        (1, 384, 8, 64, 64, 128, True, False),  # one group of heads, bf16 (tensor cores)
+        (1, 300, 12, 64, 64, 128, False, False),  # a group cut short, a ragged tail
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -416,6 +418,8 @@ def test_ssd_bwd_kernel_matches_plain_version(card, B, S, H, P, N, Q, with_h0, s
         (1, 200, 2, 64, 128, True, False),  # a ragged last chunk, a state
         (2, 48, 2, 96, 16, True, True),  # steep gates, a head dim off 128
         (1, 1, 1, 32, 128, False, False),  # one position
+        (1, 300, 2, 512, 64, True, False),  # tensor-core route: D 512, chunk 64, ragged
+        (2, 200, 2, 128, 64, True, True),  # tensor-core route: D 128, chunk 64, ragged
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -447,6 +451,61 @@ def test_mlstm_bwd_kernel_matches_plain_version(card, B, S, H, D, Q, with_state,
 
     _scan_bwd_close(flat(got), flat(want), dtype)
     assert all(torch.equal(g, a) for g, a in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize(
+    "kind,D,dtype,route",
+    [
+        ("mlstm", 1024, torch.bfloat16, "wgmma"),  # xlstm-1.3b's head dim
+        ("mlstm", 64, torch.bfloat16, "wgmma"),
+        ("mlstm", 96, torch.bfloat16, "simt"),  # not a multiple of 64
+        ("mlstm", 1024, torch.float32, "simt"),
+        ("ssd", 64, torch.bfloat16, "wgmma"),  # zamba2's P = N = 64
+        ("ssd", 64, torch.float32, "simt"),
+    ],
+)
+def test_scan_bwd_route(card, kind, D, dtype, route):
+    """Each call takes the route its dtype and head dim give, and the
+    profiler sees that route's CUDA kernels (the tensor-core route's are
+    named ``*_tc_kernel`` or ``pass_parts_kernel``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import mlstm_scan_bwd as mb
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    rng = np.random.default_rng(D)
+    if kind == "mlstm":
+        q, k, v, lf, li = _mlstm_inputs(rng, 1, 160, 2, D, dtype, card)
+        dh = _randn(rng, (1, 160, 2, D), torch.float32, card)
+        mod = mb
+
+        def call():
+            return mb.mlstm_scan_bwd(q, k, v, lf, li, None, dh, block_q=128)
+    else:
+        xh, la, bm, cm = _ssd_inputs(rng, 1, 160, 8, D, D, dtype, card)
+        dy = _randn(rng, (1, 160, 8, D), dtype, card)
+        mod = sb
+
+        def call():
+            return sb.ssd_scan_bwd(xh, la, bm, cm, None, dy, block_q=128)
+    want = mod.kernel_route(dtype, D) if kind == "mlstm" else mod.kernel_route(dtype)
+    assert want == route
+    mod.reset_launch_count()
+    call()
+    torch.cuda.synchronize()
+    assert mod.launch_count() == 1 and mod.last_route() == route
+    names = []
+    for _ in range(3):  # a profile's device records sometimes do not arrive
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    tc = [n for n in names if "_tc_kernel" in n or "pass_parts_kernel" in n]
+    assert names
+    assert bool(tc) == (route == "wgmma"), names
 
 
 def test_ops_scans_run_the_backward_kernels_under_autograd(card):

@@ -310,3 +310,108 @@ def test_scan_functions_match_autograd_inside_the_layer(arch, monkeypatch):
     torch.testing.assert_close(out_g, out_w, rtol=0, atol=0)
     for name in want:
         _close(name, got[name], want[name])
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core routes' precision design, on the plain backwards
+# ---------------------------------------------------------------------------
+
+#: BWD_TOL's bf16 rule (chip_smoke.py): rtol, and atol x each gradient's
+#: max|unrounded|, per tensor
+BF16_RULE = 2e-2
+
+
+def _parts(t: torch.Tensor) -> tuple:
+    """An f32 operand as the kernels feed it to bf16 wgmma: hi = bf16(t),
+    lo = bf16(t - hi); an operand that is exact in bf16 has lo = 0."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _rounded_products(monkeypatch):
+    """Route every `@` and einsum of the plain backwards through bf16 parts:
+    hi·hi + hi·lo + lo·hi, each product and sum in f32 (lo·lo is dropped, as
+    the kernels drop it).  A three-operand einsum first folds its first two
+    operands (a row scale into an operand, as the kernels fold it before
+    the split)."""
+    matmul, einsum = torch.matmul, torch.einsum
+
+    def split_product(fn, a, b):
+        (ah, al), (bh, bl) = _parts(a.float()), _parts(b.float())
+        return fn(ah, bh) + fn(ah, bl) + fn(al, bh)
+
+    def rounded_einsum(eq, *ops):
+        if len(ops) == 1:
+            return einsum(eq, *ops)
+        ins, out = eq.replace(" ", "").split("->")
+        terms = ins.split(",")
+        if len(ops) == 3:
+            union = "".join(dict.fromkeys(terms[0] + terms[1]))
+            folded = einsum(f"{terms[0]},{terms[1]}->{union}", ops[0], ops[1])
+            return rounded_einsum(f"{union},{terms[2]}->{out}", folded, ops[2])
+        eq2 = f"{terms[0]},{terms[1]}->{out}"
+        return split_product(lambda a, b: einsum(eq2, a, b), *ops)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", lambda a, b: split_product(matmul, a, b))
+    monkeypatch.setattr(torch, "einsum", rounded_einsum)
+
+
+def _rule_excess(got, want) -> float:
+    """How far the worst gradient passes the bf16 rule; <= 0 holds."""
+    return max(
+        float(((g.float() - w.float()).abs()
+               - BF16_RULE * (w.float().abs() + w.float().abs().max())).max())
+        for g, w in zip(got, want)
+    )
+
+
+def _bf16_exact(x: np.ndarray) -> np.ndarray:
+    """x rounded to bf16 and held in f32: an input the kernels read exactly."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize(
+    "kind,shape",
+    [
+        ("ssd", (1, 40, 3, 32, 16, 16, True, True, False)),
+        ("ssd", (2, 33, 2, 64, 32, 8, False, True, True)),
+        ("mlstm", (1, 40, 2, 64, 16, True, True, False)),
+        ("mlstm", (1, 33, 2, 64, 8, True, False, True)),  # steep gates
+    ],
+)
+def test_split_bf16_products_hold_the_bwd_rule(kind, shape, monkeypatch):
+    """The plain backward with every product's operands rounded as the
+    tensor-core routes round them (bf16 inputs exact, f32 operands as
+    hi + lo, three parts where both are f32, f32 sums) against the same
+    plain backward unrounded, by BWD_TOL's bf16 rule; f32 gradients, so the
+    margin is the products' rounding alone."""
+    if kind == "ssd":
+        B, S, H, P, N, Q, with_h0, with_dhf, strided = shape
+        a, bm, cm, h0, dhf = _ssd_case(S + P, B, S, H, P, N, with_h0, with_dhf, strided)
+        for key in ("xh", "dy"):
+            a[key] = _bf16_exact(a[key])
+        bm = torch.from_numpy(_bf16_exact(bm.contiguous().numpy()))
+        cm = torch.from_numpy(_bf16_exact(cm.contiguous().numpy()))
+
+        def run():
+            return [t for t in _ssd_plain(a, bm, cm, h0, dhf, Q) if t is not None]
+    else:
+        B, S, H, D, Q, with_state, with_final, steep = shape
+        a, state, final = _mlstm_case(S + D, B, S, H, D, with_state, with_final, steep)
+        for key in ("q", "k", "v"):
+            a[key] = _bf16_exact(a[key])
+
+        def run():
+            return _mlstm_plain(a, state, final, Q)
+
+    want = run()
+    with monkeypatch.context() as m:
+        _rounded_products(m)
+        got = run()
+    excess = _rule_excess(got, want)
+    worst = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(got, want))
+    print(f"{kind} {shape}: rule excess {excess:.4g} (<= 0 holds), worst error "
+          f"{worst:.3g} of a gradient's max")
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert excess <= 0
