@@ -166,16 +166,19 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    their plain backwards by the same rule, two calls bit-equal: SSD at
    zamba2-1.2b's train shape (B 2, S 4096, H 64, P = N = 64, bf16), in f32,
    ragged S 1000, with h0 and dh_final, with the model's strided Bm / Cm and
-   at the reduced shape; mLSTM at xlstm-1.3b's train shape (B 1, S 4096,
-   H 4, D 1024, bf16) and at B 2, D 1024 in f32, D 64, ragged S 1000, with an entering
+   at the reduced shape; mLSTM at xlstm-1.3b's train shape (B 2, S 4096,
+   H 4, D 1024, bf16) and at B 1, D 1024 in f32, D 64,
+   ragged S 1000, with an entering
    state and the final state's gradients, and with steep gates; each case's
    route (``wgmma`` for bf16, and for the mLSTM at head dims that are
    multiples of 64; ``simt`` otherwise), device time, its CUDA kernels'
    time in one call (``SCAN_BWD_PASSES``), bound and the plain backward's
    time;
    (b) ``python -m repro_torch.launch.train --arch olmo-1b --full-size``,
-   2 x 4096 tokens a step, 5 steps (2 of warm-up): exactly 16 flash and 16
-   backward launches a step and no other model kernel, seconds a step,
+   2 x 4096 tokens a step, 5 steps (2 of warm-up), under the config's
+   remat "full" (each layer recomputed in the backward): exactly 32 flash
+   (16 forward, 16 recomputed) and 16 backward launches a step and no
+   other model kernel, seconds a step,
    tokens/s, the share of 989 TFLOP/s by ``configs/base.py``'s
    ``model_flops``, peak CUDA MB; then one step of the same model with
    every backward call held to the plain version and no input copied into
@@ -188,18 +191,39 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    qwen2-vl, seamless, zamba2 and xlstm against the same step under
    ``ops.plain()``, with exactly the model kernels' launches of a step;
    (d) ``python -m repro_torch.launch.train --full-size`` of zamba2-1.2b
-   (2 x 4096 tokens a step) and xlstm-1.3b (1 x 4096: batch 2 does not fit
-   80 GB), 4 steps each: exactly one scan
-   forward and one scan backward launch a layer a step (38 and 48) and the
-   shared block's 6 flash and 6 flash-backward launches (zamba2), finite
+   and xlstm-1.3b (2 x 4096 tokens a step, remat "full"; without it
+   xlstm-1.3b does not fit 80 GB at batch 2), 4 steps each: exactly two
+   scan forward launches (the forward and its recompute) and one scan
+   backward launch a layer a step (38 and 48) and the shared block's 12
+   flash and 6 flash-backward launches (zamba2), finite
    losses, seconds a step, tokens/s, the share of 989 TFLOP/s, peak CUDA
    MB; then one more step of each profiled by ``torch.profiler`` and split
    by kernel group (scan backward, scan forward, flash, GEMMs, the rest:
    elementwise passes and the optimizer; and idle against the warm step),
-   so the scan backward's share of a step is measured; (e) ``python -m
-   repro_torch.examples.train_lm`` (the ~100M olmo) for 300 steps, its
-   loss falling; (f) a save, then a resume, the resumed losses within
-   1e-3 of the uninterrupted run's.
+   so the scan backward's share of a step is measured; then the remat
+   settings side by side: a warm step and a timed one of olmo-1b and
+   zamba2-1.2b (2 x 4096) without remat, and of xlstm-1.3b (1 x 4096) with
+   and without, their peak CUDA MB and seconds beside the launcher's
+   "full" runs (``REMAT_PROBES``); and the recompute held bit for bit: at
+   published width and cut depth (``RECOMPUTE_MODELS``, 1 x 4096, bf16)
+   every forward kernel call's recompute gives its first call's bits, and
+   the loss and every gradient under "full" equal those under "none";
+   (e) ``python -m repro_torch.examples.train_lm`` (the ~100M olmo) for
+   300 steps, its loss falling; (f) a save, then a resume, the resumed
+   losses within 1e-3 of the uninterrupted run's;
+18. sharded — ``python -m repro_torch.launch.train``'s mesh path on the
+   card: the published olmo-1b (2 x 4096, remat "full") for 4 steps on a
+   (1, 1) ``DeviceMesh`` over NCCL at world size 1 (``run_ranks``), every
+   parameter, AdamW moment and batch a DTensor and every flash call
+   entering through ``local_map`` (counted: as many as the flash
+   launches); exactly phase 17's launches a step; its first loss within
+   2e-2 of phase 17's at the same seed; its warm step (steps 2-3) and peak
+   CUDA MB beside phase 17's; then, after the last step, one more step
+   profiled by ``torch.profiler`` beside phase 17's profiled step: kernel
+   ms, launches, the idle share, kernel ms by group and the kernels that
+   grew most, so the gap in the warm step splits into the card's extra
+   work and the host's (the card idle).  One rank moves no bytes: the
+   traffic is tested on gloo CPU ranks.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -3009,8 +3033,8 @@ SCAN_BWD_CASES = [
     ("ssd", "the model's strided Bm / Cm", 2, 1024, 64, 64, 64, 128, torch.bfloat16,
      {"strided": True}),
     ("ssd", "reduced P 32 / N 16 / chunk 16", 2, 256, 8, 32, 16, 16, torch.bfloat16, {}),
-    ("mlstm", "xlstm-1.3b train S 4096", 1, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
-    ("mlstm", "xlstm-1.3b at batch 2", 2, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "xlstm-1.3b train S 4096", 2, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
+    ("mlstm", "xlstm-1.3b at batch 1", 1, 4096, 4, 1024, 0, 128, torch.bfloat16, {}),
     ("mlstm", "D 1024 f32", 1, 512, 4, 1024, 0, 128, torch.float32, {}),
     ("mlstm", "D 64", 2, 2048, 8, 64, 0, 128, torch.bfloat16, {}),
     ("mlstm", "ragged S 1000", 1, 1000, 4, 1024, 0, 128, torch.bfloat16, {}),
@@ -3073,10 +3097,20 @@ TRAIN_READINGS = {
     "xlstm-1.3b": {"leaf": 9.75e-6, "grad_norm": 6.06e-7},
 }
 #: the scan archs trained at their published size through the launcher:
-#: (arch, global batch) at repro's train_4k sequence length; xlstm-1.3b
-#: runs out of the card's 80 GB at batch 2 (activations of 48 layers of
-#: width 4096), so it trains at batch 1
-SCAN_TRAINS = [("zamba2-1.2b", 2), ("xlstm-1.3b", 1)]
+#: (arch, global batch) at repro's train_4k sequence length, under their
+#: config's remat "full" (without it xlstm-1.3b ran out of the card's 80 GB
+#: at batch 2 and trained at batch 1)
+SCAN_TRAINS = [("zamba2-1.2b", 2), ("xlstm-1.3b", 2)]
+#: the published trainings under the other remat setting, beside the
+#: launcher's "full": (arch, global batch, remat), a warm step and one timed
+#: step each; xlstm-1.3b at batch 1 both ways (batch 2 without remat does
+#: not fit 80 GB)
+REMAT_PROBES = [("olmo-1b", 2, "none"), ("zamba2-1.2b", 2, "none"),
+                ("xlstm-1.3b", 1, "none"), ("xlstm-1.3b", 1, "full")]
+#: the published widths at a cut depth (one shared block for zamba2) whose
+#: "full" step is held bit for bit to its "none" step, and every forward
+#: kernel's recompute to its first call (arch, layers)
+RECOMPUTE_MODELS = [("olmo-1b", 2), ("zamba2-1.2b", 7), ("xlstm-1.3b", 2)]
 SCAN_TRAIN_STEPS = 4
 TRAIN_MARGIN = 3.0
 #: the floor of every limit: a few hundred f32 ulps, where a reading is 0
@@ -3344,6 +3378,15 @@ def _train_batch(cfg, seq: int, batch: int, step: int = 0) -> dict:
     return {k: v.cuda() for k, v in ds.batch(step).items()}
 
 
+#: olmo-1b's train step's kernels by group (regexes over the profiler's names)
+OLMO_GROUPS = {
+    "flash_bwd": r"dq_tc_kernel|dkv_tc_kernel|dq_kernel|dkv_kernel",
+    "flash_bwd_passes": r"delta_kernel|group_sum_kernel",
+    "flash_fwd": r"flash_tc_kernel|flash_kernel",
+    "gemm": r"gemm|sm90_xmma|cutlass|nvjet",
+}
+
+
 def olmo_train(card: str) -> dict:
     """(b): the published olmo-1b trained 5 steps through the launcher, then
     one step of the same model shadowed, profiled and split by phase."""
@@ -3400,12 +3443,7 @@ def olmo_train(card: str) -> dict:
     if not (math.isfinite(float(metrics["loss"])) and gnorm > 0):
         fail(f"train: loss {float(metrics['loss'])}, grad norm {gnorm}")
     prof = device_profile(lambda: step(model, opt, data))
-    split = split_kernels(prof["kernels"], {
-        "flash_bwd": r"dq_tc_kernel|dkv_tc_kernel|dq_kernel|dkv_kernel",
-        "flash_bwd_passes": r"delta_kernel|group_sum_kernel",
-        "flash_fwd": r"flash_tc_kernel|flash_kernel",
-        "gemm": r"gemm|sm90_xmma|cutlass|nvjet",
-    })
+    split = split_kernels(prof["kernels"], OLMO_GROUPS)
     bwd_share = (split["flash_bwd"] + split["flash_bwd_passes"]) / prof["device_ms"]
     # the step's phases on the device clock: events between the forward,
     # the backward and the optimizer (each span includes its idle gaps)
@@ -3441,7 +3479,7 @@ def olmo_train(card: str) -> dict:
         "launches": counts, "shadow": shadow.summary(), "grad_norm": gnorm,
         "profile": {"device_ms": prof["device_ms"], "launches": prof["launches"],
                     "top": prof["top"], "split_ms": split,
-                    "flash_bwd_share": bwd_share},
+                    "flash_bwd_share": bwd_share, "kernels": prof["kernels"]},
         "bwd_input_copies": copies,
         "phases_ms": phases, "split_step_s": split_s,
         # the card's idle share of a user's step: the profiled step's kernel
@@ -3463,10 +3501,14 @@ def olmo_train(card: str) -> dict:
 def train_launches(cfg, steps: int = 1) -> dict:
     """The model kernels' launches in ``steps`` train steps of ``cfg``: each
     forward kernel once a layer that runs it, its backward kernel as often;
-    an encoder-decoder's encoder, self- and cross-attention; MLA none."""
-    flash = ssd = mlstm = 0
+    an encoder-decoder's encoder, self- and cross-attention; MLA none.
+    Under ``cfg.remat == "full"`` each checkpointed layer (every layer, the
+    hybrid's shared block, the encoder-decoder's decoder layers; not its
+    encoder) runs its forward kernels again in the backward: twice a step."""
+    again = 2 if cfg.remat == "full" else 1
+    flash = ssd = mlstm = enc = 0
     if cfg.family in ("encdec", "audio"):
-        flash = cfg.n_enc_layers + 2 * cfg.n_layers
+        enc, flash = cfg.n_enc_layers, 2 * cfg.n_layers
     elif cfg.family == "hybrid":
         ssd = cfg.n_layers
         flash = -(-cfg.n_layers // cfg.shared_attn_every) - 1
@@ -3474,9 +3516,149 @@ def train_launches(cfg, steps: int = 1) -> dict:
         mlstm = cfg.n_layers
     elif cfg.mla is None:
         flash = cfg.n_layers
-    return {"flash_attention": flash * steps, "flash_attention_bwd": flash * steps,
-            "decode_attention": 0, "ssd_scan": ssd * steps, "ssd_scan_bwd": ssd * steps,
-            "mlstm_scan": mlstm * steps, "mlstm_scan_bwd": mlstm * steps}
+    return {"flash_attention": (enc + again * flash) * steps,
+            "flash_attention_bwd": (enc + flash) * steps, "decode_attention": 0,
+            "ssd_scan": again * ssd * steps, "ssd_scan_bwd": ssd * steps,
+            "mlstm_scan": again * mlstm * steps, "mlstm_scan_bwd": mlstm * steps}
+
+
+def remat_probe(arch: str, batch: int, remat: str) -> dict:
+    """The published ``arch`` at ``batch`` x 4096 under ``remat``: a warm
+    step, then one step timed on the host clock (to the loss's read), and
+    the peak of ``torch.cuda.max_memory_allocated`` over both."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = replace(registry.get(arch), remat=remat)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, seed=SEED)
+    step = steps.make_train_step(cfg, adamw.OptConfig(lr=3e-4, warmup_steps=2,
+                                                      total_steps=4))
+    opt = adamw.init_state(dict(model.named_parameters()))
+    data = _train_batch(cfg, 4096, batch)
+    opt, metrics = step(model, opt, data)
+    first = float(metrics["loss"])
+    t = time.perf_counter()
+    opt, metrics = step(model, opt, data)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    del model, opt, data, step, metrics
+    torch.cuda.empty_cache()
+    if not (math.isfinite(first) and math.isfinite(loss)):
+        fail(f"train {arch} remat={remat}: losses {first}, {loss}")
+    row = {"arch": arch, "global_batch": batch, "seq_len": 4096, "remat": remat,
+           "step_s": step_s, "tokens_per_s": 4096 * batch / step_s,
+           "peak_cuda_mb": peak_mb, "losses": [first, loss]}
+    log(f"train {arch} remat={remat}, {batch} x 4096: a warm step {step_s:.3f} s, "
+        f"peak_cuda_MB={peak_mb:.1f}")
+    return row
+
+
+def _bits_digest(t: torch.Tensor) -> tuple:
+    """Two integer sums over a tensor's bits (plain and position-weighted):
+    equal tensors give equal digests."""
+    b = t.detach().contiguous().view(-1)
+    b = b.view(torch.int16 if b.element_size() == 2 else torch.int32).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+    return int(b.sum()), int((b * w).sum())
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+class ForwardDigests:
+    """While entered, every forward kernel call (flash, SSD, mLSTM) is
+    recorded as (its inputs' digest, its outputs' digest)."""
+
+    NAMES = (("flash_attention", "flash_attention"), ("ssd_scan", "ssd_scan"),
+             ("mlstm_scan", "mlstm_scan"))
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self._saved = [], []
+        for mod_name, fn_name in self.NAMES:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            inner = getattr(mod, fn_name)
+
+            def recorded(*args, _inner=inner, _name=mod_name, **kwargs):
+                out = _inner(*args, **kwargs)
+                self.calls.append((_name, tuple(_bits_digest(t) for t in _tensors(args)),
+                                   tuple(_bits_digest(t) for t in _tensors(out))))
+                return out
+
+            self._saved.append((mod, fn_name, inner))
+            setattr(mod, fn_name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, inner in self._saved:
+            setattr(mod, fn_name, inner)
+
+
+def recompute_check() -> list:
+    """Under remat "full" each layer's forward kernels run again in the
+    backward: at each ``RECOMPUTE_MODELS`` config (published width, cut
+    depth, 1 x 4096, bf16) every recomputed forward call must give its
+    first call's bits, and the step's loss and every gradient must equal
+    the "none" step's bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+
+    rows = []
+    for arch, layers in RECOMPUTE_MODELS:
+        base = replace(registry.get(arch), n_layers=layers)
+        grads, losses = {}, {}
+        for remat in ("full", "none"):
+            cfg = replace(base, remat=remat)
+            model = build_model(cfg, seed=SEED).requires_grad_(True)
+            data = _train_batch(cfg, 4096, 1)
+            ops.reset_launch_counts()
+            with ForwardDigests() as dig:
+                loss, _ = steps.make_loss_fn(cfg)(model, data)
+                loss.backward()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if counts != train_launches(cfg):
+                fail(f"recompute {arch} remat={remat}: launches {counts}, "
+                     f"expected {train_launches(cfg)}")
+            losses[remat] = loss.detach()
+            grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+            if remat == "full":
+                by_input: dict = {}
+                for name, inp, out in dig.calls:
+                    by_input.setdefault((name, inp), []).append(out)
+                twice = [outs for outs in by_input.values() if len(outs) == 2]
+                if len(twice) != len(by_input) or len(dig.calls) != 2 * len(by_input):
+                    fail(f"recompute {arch}: {len(dig.calls)} forward calls over "
+                         f"{len(by_input)} inputs; each should run exactly twice")
+                same = sum(a == b for a, b in twice)
+                calls = len(dig.calls)
+            del model, data, loss
+            torch.cuda.empty_cache()
+        equal = [n for n, g in grads["full"].items() if torch.equal(g, grads["none"][n])]
+        row = {"arch": arch, "layers": layers, "forward_calls": calls,
+               "recomputes": len(twice), "recomputes_bit_equal": same,
+               "loss_equal": bool(torch.equal(losses["full"], losses["none"])),
+               "grads": len(grads["full"]), "grads_bit_equal": len(equal)}
+        log(f"train recompute {arch} ({layers} layers, 1 x 4096, bf16): {row}")
+        if same != len(twice) or not row["loss_equal"] or len(equal) != row["grads"]:
+            fail(f"recompute {arch}: remat 'full' is not bit-equal to 'none': {row}")
+        rows.append(row)
+        del grads
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _grads_of_step(cfg, plain: bool) -> tuple:
@@ -3663,13 +3845,163 @@ def train_phase(card: str) -> dict:
                         scan_cases[("ssd" if arch.startswith("zamba2") else "mlstm")
                                    + "_scan_bwd"][0]["ms"])
              for arch, batch in SCAN_TRAINS]
+    probes = [remat_probe(*p) for p in REMAT_PROBES]
+    recompute = recompute_check()
     rest = example_and_resume()
     seconds = time.perf_counter() - t
     log(f"train: phase 17 in {seconds:.1f} s")
     launches = {k: olmo["launches"][k] + sum(r["launches"][k] for r in scans)
                 for k in olmo["launches"]}
+    # the remat settings side by side: the launcher's "full" runs, the probes
+    remat = [{"arch": r["arch"], "global_batch": r["global_batch"], "remat": "full",
+              "step_s": r["warm_step_s"], "peak_cuda_mb": r["peak_cuda_mb"],
+              "source": "launcher"} for r in [olmo, *scans]]
+    remat += [dict(p, source="probe") for p in probes]
+    for r in remat:
+        log(f"train remat {r['arch']} {r['global_batch']} x 4096 remat={r['remat']}: "
+            f"{r['step_s']:.3f} s a warm step, peak {r['peak_cuda_mb']:.1f} MB "
+            f"({r['source']})")
     return {"backward": cases, **scan_cases, "olmo": olmo, "reduced": reduced,
-            "scan_trains": scans, **rest, "launches": launches, "seconds": seconds}
+            "scan_trains": scans, "remat": remat, "recompute": recompute, **rest,
+            "launches": launches, "seconds": seconds}
+
+
+def sharded_rank(argv: list) -> dict:
+    """Phase 18's ``run_ranks`` target (at module level, so the spawned rank
+    imports it): ``launch.train.main(argv)`` on this rank of the initialized
+    process group (the launcher's mesh path), counting the kernel calls
+    that enter through ``local_map`` (``ops._on_shards``); after its last
+    step, with the run's counts taken, one more step on the mesh profiled
+    (``device_profile``; the last step's time holds it).  The losses, step
+    times, launches, the profile, peak CUDA MB and what the run saw of the
+    mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.train import steps
+
+    inner, seen = ops._on_shards, {"calls": 0, "dtensor_q": 0}
+    make_step, taken = steps.make_train_step, {}
+    n_steps = int(argv[argv.index("--steps") + 1])
+
+    def counted(fn, args, *rest):
+        seen["calls"] += 1
+        seen["dtensor_q"] += isinstance(args[0], DTensor)
+        return inner(fn, args, *rest)
+
+    def profiled(cfg, opt_cfg):
+        step = make_step(cfg, opt_cfg)
+
+        def run(model, opt, batch):
+            out = step(model, opt, batch)
+            taken["steps"] = taken.get("steps", 0) + 1
+            if taken["steps"] == n_steps:
+                torch.cuda.synchronize()
+                # the profiled step keeps a second AdamW state alive: the
+                # run's peak is read before it
+                taken.update(launches=ops.launch_counts(), on_shards=dict(seen),
+                             peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+                taken["profile"] = device_profile(lambda: step(model, out[0], batch))
+            return out
+        return run
+
+    ops._on_shards, steps.make_train_step = counted, profiled
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        losses, mon = launch.main(argv)
+    finally:
+        ops._on_shards, steps.make_train_step = inner, make_step
+    torch.cuda.synchronize()
+    prof = taken["profile"]
+    return {"losses": losses, "step_s": [dt for _, dt in mon.times],
+            "launches": taken["launches"], "on_shards": taken["on_shards"],
+            "profile": {"device_ms": prof["device_ms"], "launches": prof["launches"],
+                        "top": prof["top"], "kernels": prof["kernels"],
+                        "attempts": prof["attempts"]},
+            "peak_cuda_mb": taken["peak_mb"], "world": dist.get_world_size(),
+            "backend": dist.get_backend(),
+            "device": torch.cuda.get_device_name(torch.cuda.current_device())}
+
+
+def sharded_phase(train: dict, smi: str) -> dict:
+    """Phase 18: the sharded launcher on the card.  The published olmo-1b
+    (2 x 4096, remat "full") trains 4 steps through ``launch.train``'s mesh
+    path on a (1, 1) DeviceMesh over NCCL at world size 1 (``run_ranks``):
+    every parameter, AdamW moment and batch a DTensor, every flash call
+    through ``local_map``; its first loss held to phase 17's at the same
+    seed (``BWD_TOL``'s bf16 rule), its launches exact, its warm step (the
+    median of steps 2-3; the last holds the profile) and peak beside phase
+    17's.  The warm step's gap to phase 17's splits by the two profiled
+    steps into the card's extra kernel time (and by group, and the kernels
+    that grew most) and the rest, the host's, which the card idles."""
+    from repro_torch.configs import registry
+    from repro_torch.core.ranks import run_ranks
+
+    cfg = registry.get("olmo-1b")
+    n_steps = 4
+    ckpt = OUT_DIR / "sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [a for a in TRAIN_ARGV] + ["--ckpt-dir", str(ckpt), "--data-mesh", "1", "1"]
+    argv[argv.index("--steps") + 1] = str(n_steps)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = run_ranks(sharded_rank, 1, args=(argv,))
+    call_s = time.perf_counter() - t
+    shutil.rmtree(ckpt, ignore_errors=True)
+    want = train_launches(cfg, n_steps)
+    if res["launches"] != want:
+        fail(f"sharded: kernel launches {res['launches']}, expected {want}")
+    if res["on_shards"] != {"calls": want["flash_attention"],
+                            "dtensor_q": want["flash_attention"]}:
+        fail(f"sharded: {res['on_shards']} kernel calls through local_map, "
+             f"{want['flash_attention']} flash launches")
+    losses = res["losses"]
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
+        fail(f"sharded: losses {losses}")
+    olmo = train["olmo"]
+    rel = abs(losses[0] / olmo["losses"][0] - 1)
+    if rel > BWD_TOL[torch.bfloat16]:
+        fail(f"sharded: first loss {losses[0]} against phase 17's {olmo['losses'][0]}")
+    warm_s = statistics.median(res["step_s"][1:-1])
+    prof, prof17 = res["profile"], olmo["profile"]
+    gap_ms = (warm_s - olmo["warm_step_s"]) * 1e3
+    device_gap_ms = prof["device_ms"] - prof17["device_ms"]
+    groups, groups17 = (split_kernels(p["kernels"], OLMO_GROUPS) for p in (prof, prof17))
+    grown = sorted(((name[:80], ms - prof17["kernels"].get(name, 0.0))
+                    for name, ms in prof["kernels"].items()), key=lambda kv: -kv[1])[:5]
+    split = {"gap_ms": gap_ms, "device_gap_ms": device_gap_ms,
+             "host_gap_ms": gap_ms - device_gap_ms,
+             "device_ms": prof["device_ms"], "phase17_device_ms": prof17["device_ms"],
+             "launches": prof["launches"], "phase17_launches": prof17["launches"],
+             "idle_share": 1 - prof["device_ms"] / (warm_s * 1e3),
+             "phase17_idle_share": olmo["idle_share"],
+             "groups_ms": groups, "phase17_groups_ms": groups17, "grown_ms": grown,
+             "attempts": prof["attempts"]}
+    row = {"arch": cfg.name, "global_batch": 2, "seq_len": 4096, "steps": n_steps,
+           "mesh": (1, 1), "world": res["world"], "backend": res["backend"],
+           "device": res["device"], "losses": losses, "first_loss_rel": rel,
+           "phase17_first_loss": olmo["losses"][0], "step_s": res["step_s"],
+           "warm_step_s": warm_s, "phase17_warm_step_s": olmo["warm_step_s"],
+           "step_gap_s": warm_s - olmo["warm_step_s"], "gap_split": split,
+           "peak_cuda_mb": res["peak_cuda_mb"],
+           "phase17_peak_cuda_mb": olmo["peak_cuda_mb"], "launches": res["launches"],
+           "on_shards": res["on_shards"], "call_s": call_s}
+    log(f"sharded olmo-1b on a (1, 1) mesh, {res['backend']} world {res['world']}, "
+        f"2 x 4096, {n_steps} steps: losses={losses} (first {rel:.2e} from phase "
+        f"17's); warm step {warm_s:.3f} s against phase 17's "
+        f"{olmo['warm_step_s']:.3f} s; peak_cuda_MB={res['peak_cuda_mb']:.1f} against "
+        f"{olmo['peak_cuda_mb']:.1f}; launches={res['launches']}; {call_s:.1f} s for "
+        f"the call [{smi}]")
+    log(f"sharded step gap {gap_ms:.1f} ms (profiled steps): the card's kernels "
+        f"{prof['device_ms']:.1f} ms in {prof['launches']} launches against phase 17's "
+        f"{prof17['device_ms']:.1f} ms in {prof17['launches']} ({device_gap_ms:+.1f} ms), "
+        f"the rest {gap_ms - device_gap_ms:+.1f} ms on the host; idle share "
+        f"{split['idle_share']:.3f} against {olmo['idle_share']:.3f}; by group {groups} "
+        f"against {groups17}; grown most {grown}")
+    return row
 
 
 def main() -> None:
@@ -3799,6 +4131,10 @@ def main() -> None:
     # size, and the backward kernels; their launches counted from here on
     train = train_phase(kind)
 
+    # 18. the sharded launcher on a (1, 1) mesh over NCCL; its launches are
+    # counted in its rank
+    sharded = sharded_phase(train, smi)
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -3818,8 +4154,8 @@ def main() -> None:
     # path and phases 16-17's (the backward: olmo-1b's train shape, phase
     # 17's launches); zamba2-1.2b's for the SSD scan, xlstm-1.3b's for the
     # mLSTM scan
-    model_kernels = ((fa, flash_rows, (serve, families, train)),
-                     (fab, train["backward"], (train,)),
+    model_kernels = ((fa, flash_rows, (serve, families, train, sharded)),
+                     (fab, train["backward"], (train, sharded)),
                      (dec, decode_rows, (serve, families)),
                      (ssd, ssd_rows, (zamba2, train)), (ms, mlstm_rows, (xlstm, train)),
                      (ssb, train["ssd_scan_bwd"], (train,)),
@@ -3867,6 +4203,7 @@ def main() -> None:
         "distributed": distributed,
         "families": families,
         "train": train,
+        "sharded": sharded,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

@@ -7,9 +7,11 @@ Production posture:
   * async — ``save`` snapshots tensors to the host (``.detach().cpu()``)
     then hands the write to a background thread (training continues);
   * retain-k sweep of old checkpoints;
-  * device restore — arrays are saved whole on the host, so a restore
-    places each one on the device asked for (``restore(..., device=)``) or
-    where the matching leaf of the template lies;
+  * elastic restore — arrays are saved whole on the host (a DTensor is
+    gathered with ``full_tensor()`` on every rank and written by rank 0),
+    so a restore distributes each one onto whatever mesh this run has
+    (``restore(..., shardings=)``), or places it on the device asked for
+    (``device=``) or where the matching leaf of the template lies;
   * deterministic resume — the manifest records the step.
 
 The on-disk format is the JAX package's: one ``.npy`` per leaf, named by
@@ -134,9 +136,12 @@ def _key_name(path) -> str:
 
 
 def _to_host(x) -> tuple:
-    """(host array, manifest dtype name) for one leaf."""
+    """(host array, manifest dtype name) for one leaf; a DTensor whole."""
     if isinstance(x, torch.Tensor):
-        t = x.detach().cpu()
+        t = x.detach()
+        if hasattr(t, "full_tensor"):  # a DTensor: gathered on every rank
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:  # NumPy has no bf16: store its bits
             return t.contiguous().view(torch.int16).numpy().copy(), "bfloat16"
         arr = t.numpy().copy()
@@ -158,6 +163,14 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy(order="C"))
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: the only process, or rank 0
+    of the process group (every rank holds the whole arrays)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, retain: int = 3):
         self.dir = directory
@@ -176,6 +189,8 @@ class CheckpointManager:
             if x is not None:
                 host.append(_to_host(x))
                 names.append(_key_name(path))
+        if not _writes():
+            return
 
         def write():
             try:
@@ -245,13 +260,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def restore(self, tree_like, step: Optional[int] = None, device=None):
+    def restore(self, tree_like, step: Optional[int] = None, device=None,
+                shardings=None):
         """Restore into the structure of ``tree_like``.
 
-        ``device``: where every restored tensor goes; by default each goes
-        to the device of the matching tensor leaf of ``tree_like`` (the
-        host for any other leaf).  Arrays were saved whole, so the saving
-        process's devices do not matter.
+        ``shardings``: a tree of the same structure whose leaves are
+        :class:`~repro_torch.parallel.sharding.NamedSharding` (or None): each
+        such array is distributed onto that sharding's device mesh with its
+        placements, every rank keeping its own shard.  ``device``: where
+        every other restored tensor goes; by default each goes to the
+        device of the matching tensor leaf of ``tree_like`` (the host for
+        any other leaf).  Arrays were saved whole, so the saving run's mesh
+        and devices do not matter.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -260,8 +280,14 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         paths, leaves, spec = _flatten(tree_like)
+        shards = [None] * len(leaves)
+        if shardings is not None:
+            shards = pytree.tree_flatten(
+                shardings, is_leaf=lambda x: x is None or hasattr(x, "placements"))[0]
+            if len(shards) != len(leaves):
+                raise ValueError(f"{len(shards)} shardings for {len(leaves)} leaves")
         out = []
-        for path, ref in zip(paths, leaves):
+        for path, ref, sh in zip(paths, leaves, shards):
             if ref is None:
                 out.append(None)
                 continue
@@ -273,6 +299,12 @@ class CheckpointManager:
             if hashlib.sha256(data).hexdigest() != meta["sha256"]:
                 raise IOError(f"checksum mismatch for {name} in {d}")
             t = _from_host(np.load(fpath), meta["dtype"])
+            if sh is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                out.append(distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                             sh.placements, src_data_rank=None))
+                continue
             where = device
             if where is None:
                 where = ref.device if isinstance(ref, torch.Tensor) else "cpu"

@@ -79,7 +79,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.regions import Column, Interner
+from repro_torch.core.regions import Column, Interner, annotating
 
 # ---------------------------------------------------------------------------
 # Shape / dtype parsing
@@ -866,24 +866,74 @@ GRAPH_KINDS = {
 }
 
 
+#: The functional collectives that DTensor inserts between placements
+#: (``torch.ops._c10d_functional.<op>``; ``wait_tensor`` is skipped) and
+#: their HLO kind; each names its process group in its last argument.
+C10D_KINDS = {
+    "all_reduce": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
 def _node_bytes(node) -> int:
     val = node.meta.get("val", node.meta.get("example_value"))
     return val.numel() * val.element_size()
 
 
+def _group_ranks(group) -> tuple:
+    import torch.distributed as dist
+
+    return tuple(sorted(dist.get_process_group_ranks(group)))
+
+
+def _mesh_axes_of(device_mesh):
+    """group name -> the mesh axes that process group spans, for a
+    ``torch.distributed`` DeviceMesh: its own group of each dimension, or
+    else a group of the same ranks (an equal mesh made again has groups of
+    its own, and DTensor may run on either)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    by_name, by_ranks = {}, {}
+    for d, name in enumerate(device_mesh.mesh_dim_names):
+        group = device_mesh.get_group(d)
+        by_name[group.group_name] = (name,)
+        by_ranks.setdefault(_group_ranks(group), (name,))
+
+    def axes(group_name: str) -> tuple:
+        hit = by_name.get(group_name)
+        if hit is None:
+            hit = by_ranks.get(_group_ranks(_resolve_process_group(group_name)))
+        if hit is None:
+            raise ValueError(f"process group {group_name!r} is not a dimension of "
+                             f"the device mesh {device_mesh}")
+        return hit
+
+    return axes
+
+
 def graph_collectives(
     graph,
     *,
-    mesh,
+    mesh=None,
     total_devices: int,
+    device_mesh=None,
 ) -> HloCollectiveBuffer:
-    """Every ``repro_torch`` collective node of an FX ``graph`` (in graph
-    order) as an :class:`HloCollectiveBuffer`, one row a node.
+    """Every collective node of an FX ``graph`` (in graph order) as an
+    :class:`HloCollectiveBuffer`, one row a node: the ``repro_torch``
+    instrumented collectives, and the ``_c10d_functional`` collectives that
+    DTensor inserts on ``device_mesh`` (a DeviceMesh; ``mesh`` then
+    defaults to its axes).
 
     The graph may come from ``make_fx`` or from a ``torch.compile``
-    backend; each node's arguments carry its axis key, static parameters
-    and region path (Dynamo drops ``record_function`` scopes, so the path
-    travels as an argument).  The row's ``op_name`` is
+    backend.  A ``repro_torch`` node's arguments carry its axis key, static
+    parameters and region path (Dynamo drops ``record_function`` scopes, so
+    the path travels as an argument); a ``_c10d_functional`` node names its
+    process group, mapped to mesh axes through ``DeviceMesh.get_group``,
+    and takes its region path from the ``comm_region`` annotation that
+    :func:`~repro_torch.core.regions.comm_region` stamps on the nodes
+    captured inside it.  The row's ``op_name`` is
     ``"commr::a/commr::b/<kind>"``, so the region is the innermost one, as
     :func:`scan_hlo_collectives` attributes it.  Groups are
     ``Topology.groups(axis)`` over ``mesh``; a permute counts as one group
@@ -891,8 +941,12 @@ def graph_collectives(
     perm's global pairs, as the HLO scanner takes it from
     ``source_target_pairs``.  Bytes are per device, from the nodes' shapes.
     """
+    from repro_torch.core.compat import make_mesh
     from repro_torch.core.topology import Topology
 
+    if mesh is None:
+        mesh = make_mesh(device_mesh.mesh.shape, device_mesh.mesh_dim_names)
+    mesh_axes = _mesh_axes_of(device_mesh) if device_mesh is not None else None
     buf = HloCollectiveBuffer()
     topo = Topology(list(zip(mesh.axis_names, mesh.axis_sizes)))
     for node in graph.nodes:
@@ -903,12 +957,21 @@ def graph_collectives(
         qualified = schema.name if schema is not None else getattr(
             node.target, "_qualified_op_name", "")
         namespace, _, opname = qualified.partition("::")
-        if namespace != "repro_torch" or opname not in GRAPH_KINDS:
+        if namespace == "repro_torch" and opname in GRAPH_KINDS:
+            kind = GRAPH_KINDS[opname]
+            names = tuple(node.args[1].split(","))
+            path = node.args[-1]
+        elif namespace == "_c10d_functional" and opname in C10D_KINDS:
+            if mesh_axes is None:
+                raise ValueError(f"{node.name}: a DTensor collective needs the "
+                                 "device mesh (device_mesh=)")
+            kind = C10D_KINDS[opname]
+            names = mesh_axes(node.args[-1])
+            path = node.meta.get("custom", {}).get("comm_region", "")
+        else:
             continue
-        kind = GRAPH_KINDS[opname]
-        names = tuple(node.args[1].split(","))
         rows = topo.groups(names)  # row[j]: global rank of axis index j
-        path = [r for r in node.args[-1].split("/") if r]
+        path = [r for r in path.split("/") if r]
         op_name = "/".join([f"commr::{r}" for r in path] + [kind])
         n_pairs_per_src = 1.0
         if kind == "collective-permute":
@@ -971,6 +1034,29 @@ def scan_graph_collectives(
     with compat.axis_env(mesh):
         gm = make_fx(fn)(*_to_meta(args))
     return graph_collectives(gm.graph, mesh=mesh, total_devices=total_devices)
+
+
+def capture_graph_collectives(fn, *args, device_mesh) -> HloCollectiveBuffer:
+    """The compiled collective layer of a DTensor program on this rank.
+
+    ``fn(*args)`` runs once, for real (its collectives execute on the
+    process group and its in-place updates land), under ``make_fx``, which
+    records every op DTensor dispatches to this rank's shards: the
+    ``_c10d_functional`` collectives it inserts between placements among
+    them.  Node metadata is preserved and the regions annotate
+    (:func:`~repro_torch.core.regions.annotating`), so each node carries the
+    ``comm_region`` path it ran in (a backward node the path its backward
+    ran in).  :func:`graph_collectives` reads the graph on ``device_mesh``.
+    Like :func:`scan_graph_collectives`, the layer is the collectives as
+    the program issues them, before any combiner or scheduler pass.
+    """
+    import torch.fx.traceback as fx_traceback
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    with fx_traceback.preserve_node_meta(), annotating():
+        gm = make_fx(fn)(*args)
+    return graph_collectives(gm.graph, total_devices=device_mesh.size(),
+                             device_mesh=device_mesh)
 
 
 def parse_hlo_collectives(hlo_text: str, total_devices: Optional[int] = None) -> list:

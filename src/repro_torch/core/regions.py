@@ -25,6 +25,14 @@ Two things happen inside a region:
    the HLO-level analyzer (``repro_torch.core.hlo``) attributes collectives
    to regions by the same prefix.
 
+3. While a graph is captured (:func:`annotating`, entered by
+   ``hlo.capture_graph_collectives``), the region path (``"grad/fwd/attn"``)
+   is set as the ``comm_region`` annotation of
+   ``torch.fx.traceback.annotate``, so the nodes captured inside the region
+   carry it in ``node.meta["custom"]``: the collectives that DTensor
+   inserts (``_c10d_functional`` ops, which take no region argument) are
+   attributed by it in the compiled layer.
+
 Regions nest; statistics are attributed to the innermost region, matching
 Caliper's stack semantics.
 
@@ -203,6 +211,7 @@ from typing import Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.fx.traceback as fx_traceback
 
 from repro_torch.core.faultinject import maybe_fault
 
@@ -1723,6 +1732,11 @@ class _State(threading.local):
 
 _STATE = _State()
 
+#: set while a graph is captured: only then does a region annotate the
+#: nodes made inside it (process-wide, as the backward may run on another
+#: thread)
+_ANNOTATING = False
+
 
 def current_region() -> Optional[str]:
     """Innermost active region name, or None outside any region."""
@@ -1742,8 +1756,9 @@ def comm_region(name: str) -> Iterator[None]:
     """Mark a communication region (CALI_MARK_COMM_REGION_BEGIN/END analog).
 
     Enters a ``torch.profiler.record_function`` scope so the name is
-    visible in profiler traces, and pushes onto the region stack consulted
-    by instrumented collectives.
+    visible in profiler traces, pushes onto the region stack consulted by
+    instrumented collectives, and, within :func:`annotating`, annotates
+    captured graph nodes with the region path.
     """
     if not name or "/" in name:
         raise ValueError(f"invalid comm region name: {name!r}")
@@ -1751,11 +1766,25 @@ def comm_region(name: str) -> Iterator[None]:
     if _STATE.recorder is not None:
         _STATE.recorder.enter(name)
     try:
-        with torch.profiler.record_function(COMM_REGION_SCOPE_PREFIX + name):
+        annotation = (fx_traceback.annotate({"comm_region": "/".join(_STATE.stack)})
+                      if _ANNOTATING else contextlib.nullcontext())
+        with torch.profiler.record_function(COMM_REGION_SCOPE_PREFIX + name), annotation:
             yield
     finally:
         popped = _STATE.stack.pop()
         assert popped == name, "comm_region stack corrupted"
+
+
+@contextlib.contextmanager
+def annotating() -> Iterator[None]:
+    """Within it, each :func:`comm_region` entered annotates the graph nodes
+    made inside it with its path (a graph capture's scope)."""
+    global _ANNOTATING
+    previous, _ANNOTATING = _ANNOTATING, True
+    try:
+        yield
+    finally:
+        _ANNOTATING = previous
 
 
 @contextlib.contextmanager

@@ -63,3 +63,15 @@ class SyntheticLM:
         mix = rng.random(shape) < 0.5
         tokens = torch.from_numpy(np.where(mix, (shift + 1) % cfg.vocab, base))
         return {"tokens": tokens, "labels": tokens.clone()}
+
+    def global_batch_on(self, step: int, mesh, plan) -> dict:
+        """The global batch of ``step`` as DTensors on ``mesh`` (a
+        DeviceMesh), sharded by ``plan`` over ``("batch", "seq")``: every
+        rank draws the same global batch and keeps its shard, on the mesh's
+        device."""
+        from torch.distributed.tensor import distribute_tensor
+
+        placements = plan.placements(mesh, "batch", "seq")
+        return {k: distribute_tensor(v.to(mesh.device_type), mesh, placements,
+                                     src_data_rank=None)
+                for k, v in self.batch(step).items()}

@@ -14,14 +14,16 @@
    shards, and let a ``SweepAggregator`` rebuild the batch profile
    byte-for-byte — the mechanism behind ``python -m
    repro_torch.figures.run --live`` and the ``live_dir=`` mode of the
-   benchpark runner.
+   benchpark runner,
+5. the same analysis on a compiled sharded LM train step: the reduced
+   olmo-1b on a (data 2, model 4) mesh of 8 gloo CPU ranks, one step
+   captured (``core.hlo.capture_graph_collectives``) with the collectives
+   DTensor inserts attributed to the model's regions.
 
 Every reduction below runs on the backend the command line picks (torch on
 the card by default, ``--device cpu`` or ``--backend numpy`` on the host);
-profiles are byte-identical on every backend.  The JAX package's
-quickstart also profiles a compiled sharded LM train step; that section
-waits for the port's sharded training, whose compiled collectives the
-port's graph capture would then read.
+profiles are byte-identical on every backend.  The sharded step runs on
+the CPU ranks whatever the backend (NCCL takes one rank a card).
 """
 
 import tempfile
@@ -142,6 +144,45 @@ def run() -> None:
         f"  streamed == batch: {live.to_json() == prof.to_json()}; "
         f"aggregated == batch: {merged.to_json() == prof.to_json()}"
     )
+
+    print("\n== The same analysis on a compiled sharded LM train step ==")
+    from repro_torch.core.ranks import run_ranks
+
+    by_region = run_ranks(sharded_lm_collectives, 8, backend="gloo")
+    print("collectives by model region (count, wire bytes/device):")
+    for region, (n, b) in sorted(by_region.items()):
+        print(f"  {region:12s} n={n:3d}  {b:12d} B")
+
+
+def sharded_lm_collectives() -> dict:
+    """On each of 8 ranks: one train step of the reduced olmo-1b (four query
+    and four KV heads) on a (2, 4) mesh with heads on ``model``, captured
+    as the compiled layer; region -> (collectives, wire bytes a device)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.hlo import capture_graph_collectives
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh, mesh_shape_dict
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import distribute_params
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.context import parallel_context
+    from repro_torch.parallel.sharding import default_plan
+    from repro_torch.train import steps as S
+
+    cfg = registry.get("olmo-1b").reduced(n_heads=4, n_kv_heads=4)
+    mesh = make_debug_mesh(2, 4, device="cpu")
+    plan = default_plan(cfg, mesh_shape_dict(mesh)).override(
+        heads="model", kv_heads="model", seq=None)
+    step = S.make_train_step(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    with parallel_context(mesh, plan):
+        model = build_model(cfg, device="cpu")
+        distribute_params(model, mesh, plan)
+        opt = adamw.init_state(dict(model.named_parameters()))
+        batch = data.global_batch_on(0, mesh, plan)
+        buf = capture_graph_collectives(lambda: step(model, opt, batch),
+                                        device_mesh=mesh)
+    return buf.summarize().by_region
 
 
 if __name__ == "__main__":

@@ -15,6 +15,15 @@ log-sum-exp, which :mod:`repro_torch.kernels.flash_attention_bwd` reads),
 take the plain versions, which autograd differentiates; the Functions also
 run on CPU tensors (their backward then takes the plain backward), which is
 how the CPU tests hold them to that autograd.
+
+Under a device mesh the kernels take DTensors (:func:`_on_shards`): a
+custom op has no DTensor sharding rule, so each call redistributes its
+inputs to the placements the kernel can take (batch on the plan's data
+axes, attention heads on ``model`` where the plan shards both query and
+KV heads there, sequence and head dims whole; DTensor inserts the
+all-gathers GSPMD would), then runs the same wrapper on this rank's local
+shards through ``local_map``: the kernel on the card (with no plain
+fallback), the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +42,50 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import ssd_scan_bwd as _ssd_bwd
 
 _plain_depth = 0
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _on_shards(fn, args: tuple, logical: tuple, out_logical):
+    """``fn(*local shards)`` for DTensor ``args``: each redistributed to
+    the placements of its entry of ``logical`` (a tuple of logical axes, or
+    None for an argument that is None) under the current plan, the result
+    placed by ``out_logical`` (one tuple, or a tuple of them for several
+    outputs)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan
+
+    plan = current_plan()
+    if plan is None:
+        raise ValueError("a DTensor reached a kernel outside parallel_context: "
+                         "the plan says where its shards go")
+    mesh = next(a for a in args if a is not None).device_mesh
+
+    def placed(axes):  # a list: local_map reads a tuple as one entry an output
+        return None if axes is None else list(plan.placements(mesh, *axes))
+
+    out = (placed(out_logical) if isinstance(out_logical[0], (str, type(None)))
+           else tuple(placed(o) for o in out_logical))
+    return local_map(fn, out_placements=out,
+                     in_placements=tuple(placed(a) for a in logical),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _attn_axes() -> tuple:
+    """(q's, k/v's) logical axes at the attention kernels: heads sharded only
+    where the plan puts query and KV heads on the same mesh axes (so each
+    rank's query heads read its own KV heads)."""
+    from repro_torch.parallel.context import current_plan
+
+    plan = current_plan()
+    same = plan is not None and plan.get("heads") == plan.get("kv_heads")
+    heads, kv = ("heads", "kv_heads") if same else (None, None)
+    return ("batch", heads, None, None), ("batch", kv, None, None)
 
 
 @contextlib.contextmanager
@@ -76,6 +129,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D); see the kernel module."""
+    if _is_dtensor(q):
+        qa, kva = _attn_axes()
+        return _on_shards(lambda q, k, v: flash_attention(q, k, v, causal=causal),
+                          (q, k, v), (qa, kva, kva), qa)
     if _plain_depth:
         return _flash.flash_attention_plain(q, k, v, causal=causal)
     if _needs_grad(q, k, v):
@@ -146,7 +203,14 @@ class MLSTMScan(torch.autograd.Function):
 
 
 def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
-    """xh (B,S,H,P), la (B,S,H), Bm/Cm (B,S,N) -> (y, h_final (B,H,P,N) f32)."""
+    """xh (B,S,H,P), la (B,S,H), Bm/Cm (B,S,N) -> (y, h_final (B,H,P,N) f32).
+
+    Under a mesh the scan's inputs are split by batch only."""
+    if _is_dtensor(xh):
+        b4, b3 = ("batch", None, None, None), ("batch", None, None)
+        return _on_shards(lambda *a: ssd_scan(*a, block_q=block_q),
+                          (xh, la, Bm, Cm, h0),
+                          (b4, b3, b3, b3, None if h0 is None else b4), (b4, b4))
     if _plain_depth:
         return _ssd.ssd_scan_plain(xh, la, Bm, Cm, h0, block_q=block_q)
     if _needs_grad(xh, la, Bm, Cm, h0):
@@ -155,7 +219,21 @@ def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
 
 
 def mlstm_scan(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tuple:
-    """q/k/v (B,S,H,D), lf/li (B,S,H) -> (h (B,S,H,D) f32, (C, n, m) f32)."""
+    """q/k/v (B,S,H,D), lf/li (B,S,H) -> (h (B,S,H,D) f32, (C, n, m) f32).
+
+    Under a mesh the scan's inputs are split by batch only."""
+    if _is_dtensor(q):
+        b4, b3, b2 = ("batch", None, None, None), ("batch", None, None), ("batch", None)
+        st = (b4, b3, b2) if state is not None else (None,) * 3
+
+        def local(q, k, v, lf, li, C0, n0, m0):
+            s0 = None if C0 is None else (C0, n0, m0)
+            h, (C, n, m) = mlstm_scan(q, k, v, lf, li, s0, block_q=block_q)
+            return h, C, n, m
+
+        h, C, n, m = _on_shards(local, (q, k, v, lf, li, *(state or (None,) * 3)),
+                                (b4, b4, b4, b3, b3, *st), (b4, b4, b3, b2))
+        return h, (C, n, m)
     if _plain_depth:
         return _mlstm.mlstm_scan_plain(q, k, v, lf, li, state, block_q=block_q)
     if _needs_grad(q, k, v, lf, li, *(state or ())):

@@ -1,1 +1,1 @@
-"""Launchers: training on one device."""
+"""Launchers: training on one device or across ranks, and the meshes."""

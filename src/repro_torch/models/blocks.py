@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.context import replicate, shard_act
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -153,7 +154,8 @@ def _qkv(cfg, p, x, cos, sin) -> tuple:
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q = shard_act(apply_rope(q, cos, sin), ("batch", "heads", "seq", None))
+    return q, apply_rope(k, cos, sin), v
 
 
 def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
@@ -259,7 +261,7 @@ def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask) -> torch.Tensor:
 
 def _causal_mask(sq: int, device) -> torch.Tensor:
     pos = torch.arange(sq, device=device)
-    return pos[:, None] >= pos[None, :]
+    return replicate(pos[:, None] >= pos[None, :])
 
 
 def mla_train(cfg, p, x, cos, sin) -> torch.Tensor:
@@ -317,7 +319,7 @@ def ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.act == "geglu" else F.silu(g)
-    return (act * u) @ p["w_down"]
+    return shard_act(act * u, ("batch", "seq", "mlp")) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +341,20 @@ def embed_defs(cfg) -> dict:
 
 
 def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["tok"][tokens]
+    tok = p["tok"]
+    if hasattr(tok, "placements"):
+        # under a mesh the table is gathered whole over the vocab first and
+        # read by F.embedding: DTensor's vocab-parallel lookup leaves a
+        # masked partial gradient that the tied LM head's partial one cannot
+        # join, and indexing's backward has no sharding on torch 2.11
+        x = F.embedding(tokens, shard_act(tok, (None, "embed")))
+    else:
+        x = tok[tokens]
     if cfg.embed_scale:
-        # a 0-d host tensor acts as a scalar (no copy to the card), rounded to
-        # x.dtype as the reference rounds it
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+        # the scale rounded to x.dtype, as the reference rounds it, then
+        # applied as a host scalar (no copy to the card)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return shard_act(x, ("batch", "seq", "act_embed"))
 
 
 def lm_logits(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -356,4 +366,5 @@ def lm_logits(cfg, p, x: torch.Tensor) -> torch.Tensor:
     """
     x = norm(cfg, p.get("out_norm"), x)
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
-    return x.float() @ w.float()
+    # vocab-parallel logits; seq replicated even under sequence parallelism
+    return shard_act(x.float() @ w.float(), ("batch", None, "vocab"))

@@ -20,7 +20,9 @@ As in :mod:`repro_torch.models.lm`, a stacked layer group is an
 ``nn.ModuleList`` of per-layer modules and the scan is a Python loop.  The
 encoder's K/V of each decoder layer are computed once at prefill and
 carried in the caches; the decoder's self-attention caches are updated in
-place by :meth:`EncDec.decode`.
+place by :meth:`EncDec.decode`.  Under ``cfg.remat == "full"`` training
+recomputes each decoder layer in the backward, as the reference
+checkpoints its decoder body (the encoder runs straight, as there).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from torch import nn
 from repro_torch.core.regions import comm_region
 from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
-from repro_torch.models.lm import resolve_device
+from repro_torch.models.lm import remat, resolve_device
 from repro_torch.models.params import (
     ParamDef,
     ParamTree,
@@ -39,6 +41,7 @@ from repro_torch.models.params import (
     stack_defs,
     unstack,
 )
+from repro_torch.parallel.context import replicate, shard_act
 
 
 def cross_attn_defs(cfg) -> dict:
@@ -117,7 +120,8 @@ def enc_layer(cfg, p, x, cos, sin) -> torch.Tensor:
         v = torch.einsum("bsd,dhk->bhsk", a, p["attn"]["wv"])
         o = ops.flash_attention(q, k, v, causal=False)
         x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"])
-        return x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+        return shard_act(x, ("batch", "seq", "act_embed"))
 
 
 def _layers(defs: dict, n: int, generator, device) -> nn.ModuleList:
@@ -160,7 +164,8 @@ class EncDec(nn.Module):
 
     def _rope(self, seq: int) -> tuple:
         positions = torch.arange(seq, dtype=torch.int32, device=self.device)
-        return B.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        cos, sin = B.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        return replicate(cos), replicate(sin)
 
     # -- encoder -----------------------------------------------------------
     @torch.no_grad()
@@ -170,7 +175,7 @@ class EncDec(nn.Module):
 
     def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = frames.to(self.embed["tok"].dtype)
+        x = shard_act(frames.to(self.embed["tok"].dtype), ("batch", "seq", "act_embed"))
         cos, sin = self._rope(x.shape[1])
         for lp in self.enc:
             x = enc_layer(cfg, lp, x, cos, sin)
@@ -195,7 +200,7 @@ class EncDec(nn.Module):
             x = x + cross_attend(cfg, lp["cross"], h, enc_kv, step=mode == "decode")
         with comm_region("mlp"):
             x = x + B.ffn(cfg, lp["ffn"], B.norm(cfg, lp.get("norm2"), x))
-        return x, cache
+        return shard_act(x, ("batch", "seq", "act_embed")), cache
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         with comm_region("embed"):
@@ -213,9 +218,14 @@ class EncDec(nn.Module):
         x = self._embed(batch["tokens"])
         cos, sin = self._rope(x.shape[1])
         for lp in self.dec:
-            enc_kv = cross_kv(self.cfg, lp["cross"], enc_out)
-            x, _ = self._dec_layer(lp, x, cos, sin, enc_kv, "train")
+            x = remat(self.cfg, self._train_layer, lp, x, cos, sin, enc_out)
         return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _train_layer(self, lp, x, cos, sin, enc_out) -> torch.Tensor:
+        """One decoder layer of :meth:`train_logits`, its cross K/V included
+        (the body the reference checkpoints under ``remat == "full"``)."""
+        enc_kv = cross_kv(self.cfg, lp["cross"], enc_out)
+        return self._dec_layer(lp, x, cos, sin, enc_kv, "train")[0]
 
     # -- serving -----------------------------------------------------------
     @torch.no_grad()

@@ -22,9 +22,12 @@ mLSTM states come from the prefill; all are updated in place by
 
 Every phase is wrapped in a communication region, as in the reference:
 ``embed``, ``attn``, ``mlp``, ``moe``, ``ssm``, ``shared_attn``,
-``lm_head``.  Without a device mesh the reference's ``shard_act`` is the
-identity, so the port leaves it out.  The encoder-decoder family is
-:mod:`repro_torch.models.encdec`.
+``lm_head``.  The reference's ``shard_act`` constraints sit where it puts
+them (:mod:`repro_torch.parallel.context`: the identity without a device
+mesh).  Under ``cfg.remat == "full"`` (every published config) training
+recomputes each layer, and the hybrid's shared block, in the backward
+(:func:`remat`), as the reference wraps them in ``jax.checkpoint``.  The
+encoder-decoder family is :mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.regions import comm_region
@@ -49,6 +53,7 @@ from repro_torch.models.params import (
     stack_defs,
     unstack,
 )
+from repro_torch.parallel.context import replicate, shard_act
 
 # ---------------------------------------------------------------------------
 # Layer definitions
@@ -173,6 +178,16 @@ def make_rope(cfg, positions: torch.Tensor, vision_grid: Optional[tuple] = None)
 # ---------------------------------------------------------------------------
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "full"`` its activations are not
+    kept for the backward but recomputed there (the reference's
+    ``jax.checkpoint`` of a layer body).  The layers draw no random numbers,
+    so the RNG state is not stashed.  Without autograd it is a plain call."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 #: the recurrent layer kinds: (train, decode) of their block module
 _RECURRENT = {
     "mamba": (M.mamba_train, M.mamba_decode),
@@ -203,12 +218,14 @@ def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
     if kind in _RECURRENT:
         train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            return x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x)), 0.0
+            x = x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
+        return shard_act(x, ("batch", "seq", "act_embed")), 0.0
     train, _, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         x = x + train(cfg, p["attn"], h, ctx.cos, ctx.sin)
-    return _ffn_half(cfg, kind, p, x)
+    x, aux = _ffn_half(cfg, kind, p, x)
+    return shard_act(x, ("batch", "seq", "act_embed")), aux
 
 
 def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
@@ -219,13 +236,14 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
             h, cache = train(
                 cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
             )
-            return x + h, cache
+        return shard_act(x + h, ("batch", "seq", "act_embed")), cache
     _, prefill, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         h, cache = prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
         x = x + h
-    return _ffn_half(cfg, kind, p, x)[0], cache
+    x = _ffn_half(cfg, kind, p, x)[0]
+    return shard_act(x, ("batch", "seq", "act_embed")), cache
 
 
 def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
@@ -374,7 +392,8 @@ class LM(nn.Module):
         return None
 
     def _rope(self, batch: dict, seq: int) -> tuple:
-        return make_rope(self.cfg, self._positions(seq), self._vision_grid(batch))
+        cos, sin = make_rope(self.cfg, self._positions(seq), self._vision_grid(batch))
+        return replicate(cos), replicate(sin)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         with comm_region("lm_head"):
@@ -397,10 +416,10 @@ class LM(nn.Module):
         x0 = x
         for gi, ((kind, _), layers) in enumerate(zip(self.plan, self.groups)):
             for lp in layers:
-                x, a = layer_train(cfg, kind, lp, x, ctx)
+                x, a = remat(cfg, layer_train, cfg, kind, lp, x, ctx)
                 aux = aux + a
             if self._shared_after(gi):
-                x = shared_train(cfg, self.shared, x, x0, gi, ctx)
+                x = remat(cfg, shared_train, cfg, self.shared, x, x0, gi, ctx)
         return self._head(x), aux
 
     # -- serving -----------------------------------------------------------

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.blocks import rmsnorm
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.context import replicate
 
 
 def _dims(cfg) -> tuple:
@@ -77,9 +78,9 @@ def _causal_conv(xbc, w, b, init_state=None) -> tuple:
     """
     W = w.shape[0]
     if init_state is None:
-        pad = torch.zeros(
+        pad = replicate(torch.zeros(
             (xbc.shape[0], W - 1, xbc.shape[2]), dtype=xbc.dtype, device=xbc.device
-        )
+        ))
     else:
         pad = init_state.to(xbc.dtype)
     xp = torch.cat([pad, xbc], dim=1)

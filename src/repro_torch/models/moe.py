@@ -10,8 +10,8 @@ router's logits and softmax are f32, ``dispatch`` takes x's dtype and
 bf16 combine).
 
 The expert products stay ``torch.einsum``, as in the reference: no Pallas
-kernel computes them.  Without a device mesh the reference's ``shard_act``
-is the identity, so the port leaves it out.
+kernel computes them.  The reference's ``shard_act`` constraints sit
+where it puts them (the identity without a device mesh).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.context import replicate, shard_act
 
 
 def moe_defs(cfg) -> dict:
@@ -57,9 +58,9 @@ def _route(cfg, p, xg: torch.Tensor) -> tuple:
     C = capacity(cfg, T)
     logits = torch.einsum("gtd,de->gte", xg.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)  # (G, T, E) f32
-    slots = torch.arange(C, device=xg.device)
-    combine = torch.zeros((G, T, E, C), dtype=torch.float32, device=xg.device)
-    fill = torch.zeros((G, E), dtype=torch.float32, device=xg.device)
+    slots = replicate(torch.arange(C, device=xg.device))
+    combine = replicate(torch.zeros((G, T, E, C), dtype=torch.float32, device=xg.device))
+    fill = replicate(torch.zeros((G, E), dtype=torch.float32, device=xg.device))
     remaining = probs
     for _ in range(e.top_k):
         onehot = F.one_hot(torch.argmax(remaining, dim=-1), E).float()  # (G,T,E)
@@ -93,13 +94,17 @@ def moe_ffn(cfg, p, x: torch.Tensor) -> tuple:
     if pad:
         xf = torch.cat([xf, xf.new_zeros((pad, D))], dim=0)
     xg = xf.reshape(-1, group, D)
+    xg = shard_act(xg, ("moe_groups", None, "act_embed"))
 
     combine, dispatch, aux = _route(cfg, p, xg)
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg)
+    expert_in = shard_act(expert_in, ("experts", "moe_groups", "moe_cap", "act_embed"))
     g = torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])
     u = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.act == "geglu" else F.silu(g)
-    expert_out = torch.einsum("egcf,efd->egcd", act * u, p["w_down"])
+    h = shard_act(act * u, ("experts", "moe_groups", "moe_cap", "expert_mlp"))
+    expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
+    expert_out = shard_act(expert_out, ("experts", "moe_groups", "moe_cap", "act_embed"))
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
     return y.reshape(-1, D)[:tokens].reshape(B, S, D), aux

@@ -9,8 +9,13 @@ the block functions read parameters the way the reference's do.
 A stacked layer group (:func:`stack_defs`) is initialised whole, so the
 reference's rule (:func:`_init_one`: normal x 1/sqrt(``shape[-2]``) of the
 stacked shape, bf16 by default) holds unchanged, and is then split into one
-module per layer (an ``nn.ModuleList``).  Sharded and abstract parameters
-wait for the port of ``parallel/``.
+module per layer (an ``nn.ModuleList``).
+
+On a device mesh (:func:`distribute_params`), every rank holds the same
+seeded parameters and keeps its shard of each: a DTensor with the
+placements of its logical axes under the plan (:func:`param_shardings`).
+A stacked def's leading ``layers`` axis is dropped there, since the port
+holds each layer's tensor on its own.
 """
 
 from __future__ import annotations
@@ -37,12 +42,18 @@ class ParamDef:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+@dataclass(frozen=True)
+class StackedDef(ParamDef):
+    """A ParamDef that :func:`stack_defs` made: its leading ``layers`` axis
+    is the port's list of per-layer tensors, not a dim of one."""
+
+
 def stack_defs(defs: dict, n: int) -> dict:
     """Add a leading ``layers`` axis of size n to every ParamDef in a tree."""
     return {
         k: stack_defs(d, n)
         if isinstance(d, dict)
-        else ParamDef((n,) + d.shape, ("layers",) + d.axes, d.init, d.scale, d.dtype)
+        else StackedDef((n,) + d.shape, ("layers",) + d.axes, d.init, d.scale, d.dtype)
         for k, d in defs.items()
     }
 
@@ -93,3 +104,54 @@ class ParamTree(nn.Module):
 
     def get(self, key: str, default=None):
         return getattr(self, key, default)
+
+
+def param_def(defs, name: str) -> ParamDef:
+    """The ParamDef of the parameter at dotted ``name`` in a model whose
+    definitions are ``defs``: a layer index that is not a key (the port's
+    per-layer modules of a stacked group) is skipped."""
+    node, parts = defs, name.split(".")
+    for part in parts:
+        if isinstance(node, (tuple, list)):
+            node = node[int(part)]
+        elif part in node:
+            node = node[part]
+        elif not part.isdigit():
+            raise KeyError(f"no parameter definition at {name}")
+    return node
+
+
+def _layer_axes(d: ParamDef) -> tuple:
+    """The logical axes of the tensor the port holds for ``d``."""
+    return d.axes[1:] if isinstance(d, StackedDef) else d.axes
+
+
+def param_shardings(defs, mesh, plan):
+    """The tree of ``defs`` with each ParamDef replaced by the
+    :class:`~repro_torch.parallel.sharding.NamedSharding` of its tensor on
+    ``mesh`` (a DeviceMesh) under ``plan``; a stacked group's sharding is
+    that of one layer's tensor."""
+    if isinstance(defs, ParamDef):
+        return plan.sharding(mesh, *_layer_axes(defs))
+    if isinstance(defs, dict):
+        return {k: param_shardings(d, mesh, plan) for k, d in defs.items()}
+    return type(defs)(param_shardings(d, mesh, plan) for d in defs)
+
+
+def distribute_params(model: nn.Module, mesh, plan) -> dict:
+    """Replace each parameter of ``model`` in place by a DTensor on ``mesh``
+    (a DeviceMesh) with its plan's placements; every rank keeps its own
+    shard of the full tensor it holds (no bytes move: the ranks built the
+    same parameters from the seed).  Returns name -> NamedSharding."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = {}
+    for name, p in list(model.named_parameters()):
+        sh = plan.sharding(mesh, *_layer_axes(param_def(model.defs, name)))
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        module._parameters[leaf] = nn.Parameter(
+            distribute_tensor(p.detach(), mesh, sh.placements, src_data_rank=None),
+            requires_grad=p.requires_grad)
+        out[name] = sh
+    return out

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.blocks import rmsnorm
 from repro_torch.models.mamba import _causal_conv  # the same depthwise conv
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.context import elementwise
 
 
 def _dims(cfg) -> tuple:
@@ -82,7 +83,7 @@ def _qkv_gates(cfg, p, xm, conv_state=None) -> tuple:
     k = torch.einsum("bshd,hde->bshe", xch, p["wk"]) / math.sqrt(Dh)
     v = torch.einsum("bshd,hde->bshe", xmh, p["wv"])
     gates = torch.einsum("bsk,kg->bsg", xc.float(), p["w_gates"]) + p["gate_bias"][None, None]
-    lf = F.logsigmoid(gates[..., :H])  # log forget gate
+    lf = elementwise(F.logsigmoid, gates[..., :H])  # log forget gate
     li = gates[..., H:]  # log input gate (exp)
     return q, k, v, lf, li, new_conv
 
@@ -131,7 +132,7 @@ def mlstm_decode(cfg, p, x, state: dict) -> tuple:
     kh = (torch.bmm(xch, p["wk"]) / math.sqrt(Dh)).transpose(0, 1).float()
     vh = torch.bmm(xmh, p["wv"]).transpose(0, 1).float()
     gates = xc[:, 0].float() @ p["w_gates"] + p["gate_bias"][None]
-    lf = F.logsigmoid(gates[..., :H])
+    lf = elementwise(F.logsigmoid, gates[..., :H])
     li = gates[..., H:]
 
     mp = state["m"]

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models.params import param_def
+
 
 @dataclass(frozen=True)
 class OptConfig:
@@ -51,14 +53,13 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: dict) -> dict:
-    """Zero f32 moments for every parameter and a step of 0 (int32), on the
-    parameters' devices."""
+    """Zero f32 moments for every parameter (laid out as the parameter: a
+    DTensor's moments are DTensors with its placements) and a step of 0
+    (int32), on the parameters' devices."""
     device = next(iter(params.values())).device
     return {
-        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for n, p in params.items()},
+        "m": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+        "v": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -75,25 +76,11 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
     return clipped, gn
 
 
-def _stacked_def(defs, parts: list):
-    """The ParamDef at a parameter's dotted name: a layer index that is not
-    a key (the port's per-layer modules of a stacked group) is skipped."""
-    node = defs
-    for part in parts:
-        if isinstance(node, (tuple, list)):
-            node = node[int(part)]
-        elif part in node:
-            node = node[part]
-        elif not part.isdigit():
-            raise KeyError(f"no parameter definition at {'.'.join(parts)}")
-    return node
-
-
 def decay_mask(model) -> dict:
     """name -> whether AdamW decays the parameter: the reference's
     ``p.ndim >= 2`` over its stacked tree, read from ``model.defs``."""
     return {
-        name: len(_stacked_def(model.defs, name.split(".")).shape) >= 2
+        name: len(param_def(model.defs, name).shape) >= 2
         for name, _ in model.named_parameters()
     }
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.regions import comm_region
 from repro_torch.optim import adamw
+from repro_torch.parallel.context import replicate
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int):
@@ -26,7 +27,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int):
     gather, as the reference does for its vocab-sharded logits.
     """
     vpad = logits.shape[-1]
-    iota = torch.arange(vpad, device=logits.device).view(1, 1, vpad)
+    iota = replicate(torch.arange(vpad, device=logits.device).view(1, 1, vpad))
     if vpad > vocab_real:
         logits = torch.where(iota >= vocab_real, -1e30, logits)
     lse = torch.logsumexp(logits, dim=-1)
@@ -56,13 +57,19 @@ def make_loss_fn(cfg):
     return loss_fn
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A metric's value on every rank: a DTensor (a partial sum, say) made
+    whole; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
 def make_train_step(cfg, opt_cfg: Optional[adamw.OptConfig] = None):
     """step(model, opt_state, batch) -> (opt_state, metrics).
 
     The model's parameters are updated in place and their ``.grad`` is
     ``None`` after each step.  ``metrics`` holds ``loss``, ``xent``, ``aux``,
     ``grad_norm`` and ``lr`` as tensors on the model's device (reading one
-    waits for the step).
+    waits for the step); on a device mesh they are whole on every rank.
     """
     opt_cfg = opt_cfg or adamw.OptConfig()
     loss_fn = make_loss_fn(cfg)
@@ -73,6 +80,9 @@ def make_train_step(cfg, opt_cfg: Optional[adamw.OptConfig] = None):
         with comm_region("grad"):
             loss, metrics = loss_fn(model, batch)
             loss.backward()
+            # whole on every rank under a mesh (the loss is a partial sum)
+            metrics = {k: _whole(v.detach()) for k, v in
+                       dict(metrics, loss=loss).items()}
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
@@ -83,9 +93,7 @@ def make_train_step(cfg, opt_cfg: Optional[adamw.OptConfig] = None):
             opt_state, opt_metrics = adamw.apply_updates(
                 opt_cfg, params, grads, opt_state, adamw.decay_mask(model)
             )
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics = dict(metrics, loss=loss.detach(), **opt_metrics)
-        return opt_state, metrics
+        return opt_state, dict(metrics, **{k: _whole(v) for k, v in opt_metrics.items()})
 
     return step
 

@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 78, proc.stdout
+    assert n >= 83, proc.stdout
     imported = set(proc.stdout.split())
     for name in (
         "repro_torch.kernels.ssd_scan",
@@ -90,6 +90,11 @@ def test_every_port_module_imports_without_jax():
         "repro_torch.examples.train_lm",
         "repro_torch.kernels.ssd_scan_bwd",
         "repro_torch.kernels.mlstm_scan_bwd",
+        "repro_torch.parallel",
+        "repro_torch.parallel.sharding",
+        "repro_torch.parallel.context",
+        "repro_torch.parallel.pipeline",
+        "repro_torch.launch.mesh",
     ):
         assert name in imported, proc.stdout
 
@@ -98,7 +103,7 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 79
+    assert len(sources) >= 84
     names = {os.path.relpath(p, _ROOT) for p in sources}
     assert {
         "src/repro_torch/kernels/mlstm_scan.py",
@@ -129,6 +134,10 @@ def test_no_source_imports_jax_or_repro():
         "src/repro_torch/examples/train_lm.py",
         "src/repro_torch/kernels/ssd_scan_bwd.py",
         "src/repro_torch/kernels/mlstm_scan_bwd.py",
+        "src/repro_torch/parallel/sharding.py",
+        "src/repro_torch/parallel/context.py",
+        "src/repro_torch/parallel/pipeline.py",
+        "src/repro_torch/launch/mesh.py",
     } <= names
     for path in sources:
         with open(path) as f:
