@@ -114,9 +114,10 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    paper experiments through a process pool into a ``SweepAggregator``,
    every merged profile byte-equal to batch); (c) the chaos smoke (a hard
    worker crash, a torn shard, a corrupt cache entry: converged or
-   flagged); (d) Table IV and figs 1–6 and 8 on the card and again with
-   ``REPRO_BACKEND=numpy``, every file byte-equal.  No fault-free pass
-   may return a degraded point or log a retry (fig 7 is among the figures);
+   flagged); (d) Table IV, figs 1–6 and 8 and the roofline table (empty:
+   no dry-run records) on the card and again with ``REPRO_BACKEND=numpy``,
+   every file byte-equal.  No fault-free pass may return a degraded point
+   or log a retry (fig 7 is among the figures);
 15. distributed — the four apps' distributed drivers run for real over
    ``torch.distributed`` (``repro_torch.core.ranks.run_ranks``): (a) NCCL
    at world size 1 on the card, each app at one rank of its paper per-rank
@@ -223,7 +224,17 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    ms, launches, the idle share, kernel ms by group and the kernels that
    grew most, so the gap in the warm step splits into the card's extra
    work and the host's (the card idle).  One rank moves no bytes: the
-   traffic is tested on gloo CPU ranks.
+   traffic is tested on gloo CPU ranks;
+19. dryrun — ``repro_torch.launch.dryrun`` on the card's host, which
+   captures and runs nothing on the card: (a) ``lower_cell("olmo-1b",
+   "train_4k")`` on a fake 16 x 16 mesh (torch's fake process group, 256
+   ranks): status ``ok``, collectives in ``embed``, ``grad``, ``mlp`` and
+   ``optimizer``, no process group left up; its capture seconds, roofline
+   terms, memory a device, collectives by region and the mesh's device
+   type; (b) one device at phase 17's cell (2 x 4096, remat "full"): its
+   ``model_flops`` equal to phase 17's, its ``compute_s`` at most phase
+   17's measured warm step, and its predicted memory beside the measured
+   peak CUDA MB.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2613,8 +2624,9 @@ def sweeps_phase() -> dict:
     if differ:
         fail(f"sweeps figures: card and NumPy files differ: {differ}")
     md = sorted(k for k in got if k.endswith(".md"))
-    if len(md) != 8:
-        fail(f"sweeps figures: expected 8 markdown files, found {md}")
+    if len(md) != 9 or "roofline.md" not in md:
+        fail(f"sweeps figures: expected 9 markdown files (the roofline's among "
+             f"them), found {md}")
     figures["files"] = len(got)
     figures["markdown"] = md
     row["figures"] = figures
@@ -4004,6 +4016,76 @@ def sharded_phase(train: dict, smi: str) -> dict:
     return row
 
 
+def dryrun_phase(train: dict, smi: str) -> dict:
+    """Phase 19: the dry run on the card's host.  (a) ``lower_cell`` of
+    olmo-1b at ``train_4k`` on the fake 16 x 16 mesh (256 ranks of torch's
+    fake process group): its status, capture seconds, the three roofline
+    terms, memory a device, collectives by region and the mesh's device
+    type.  (b) A one-device dry run of olmo-1b at phase 17's cell (its
+    batch x seq, remat "full"): its ``model_flops`` equal to phase 17's,
+    its ``compute_s`` (the graph's FLOPs at 989 TFLOP/s) at most phase 17's
+    measured warm step, and the predicted memory (argument + output + temp
+    bytes) beside the measured peak CUDA MB.  It launches no kernel: the
+    dry run captures and runs nothing."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    rec, gm = dryrun.lower_cell("olmo-1b", "train_4k", multi_pod=False)
+    cell_s = time.perf_counter() - t
+    del gm
+    if rec["status"] != "ok" or dist.is_initialized():
+        fail(f"dryrun: olmo-1b train_4k 16x16 gave {rec['status']}, a process group "
+             f"left up: {dist.is_initialized()}")
+    regions = rec["collectives"]["by_region"]
+    if not {"embed", "grad", "mlp", "optimizer"} <= set(regions):
+        fail(f"dryrun: collectives by region {sorted(regions)}")
+    rf, mem = rec["roofline"], rec["memory"]
+    log(f"dryrun (a) olmo-1b train_4k on a fake 16x16 mesh ({rec['device_type']}): "
+        f"capture {rec['lower_s']} s, the cell {cell_s:.1f} s; compute "
+        f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, collective "
+        f"{rf['collective_s']:.4f} s ({rf['dominant']}); memory a device "
+        f"{mem['total_bytes'] / 2**30:.2f} GiB {mem}; {rec['collectives']['n_ops']} "
+        f"collectives, by region (count, wire bytes) {regions}; plan {rec['plan']}")
+
+    olmo = train["olmo"]
+    cfg = registry.get("olmo-1b")
+    shape = ShapeConfig("train", "train", olmo["seq_len"], olmo["global_batch"])
+    t = time.perf_counter()
+    one, gm = dryrun.lower(cfg, shape)
+    one_s = time.perf_counter() - t
+    del gm
+    rf1, mem1 = one["roofline"], one["memory"]
+    if rf1["model_flops"] != olmo["model_flops_per_step"]:
+        fail(f"dryrun: model_flops {rf1['model_flops']} against phase 17's "
+             f"{olmo['model_flops_per_step']}")
+    if not 0 < rf1["compute_s"] <= olmo["warm_step_s"]:
+        fail(f"dryrun: compute_s {rf1['compute_s']} against phase 17's measured warm "
+             f"step {olmo['warm_step_s']} s")
+    predicted_mb = mem1["total_bytes"] / 2**20
+    ratio = predicted_mb / olmo["peak_cuda_mb"]
+    log(f"dryrun (b) olmo-1b one device, {shape.global_batch} x {shape.seq_len}, remat "
+        f"{cfg.remat}: capture {one['lower_s']} s ({one_s:.1f} s in all); compute_s "
+        f"{rf1['compute_s']:.4f} s against phase 17's warm step "
+        f"{olmo['warm_step_s']:.3f} s; memory_s {rf1['memory_s']:.4f} s; predicted "
+        f"{predicted_mb:.1f} MB {mem1} against the measured peak "
+        f"{olmo['peak_cuda_mb']:.1f} MB (ratio {ratio:.3f}) [{smi}]")
+    return {"cell": {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices", "plan",
+                                         "status", "lower_s", "device_type", "torch", "kernels",
+                                         "memory", "cost", "collectives", "roofline")},
+            "cell_s": cell_s,
+            "one_device": {"shape": [shape.global_batch, shape.seq_len],
+                           "remat": cfg.remat, "lower_s": one["lower_s"],
+                           "seconds": one_s, "memory": mem1, "cost": one["cost"],
+                           "roofline": rf1, "predicted_mb": predicted_mb,
+                           "peak_cuda_mb": olmo["peak_cuda_mb"],
+                           "predicted_over_peak": ratio,
+                           "warm_step_s": olmo["warm_step_s"]}}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4135,6 +4217,13 @@ def main() -> None:
     # counted in its rank
     sharded = sharded_phase(train, smi)
 
+    # 19. the dry run on the card's host: a fake 256-rank mesh, and one
+    # device at phase 17's cell; it launches no kernel
+    t = time.perf_counter()
+    dry = dryrun_phase(train, smi)
+    dry["seconds"] = time.perf_counter() - t
+    log(f"dryrun: phase 19 in {dry['seconds']:.1f} s")
+
     main_case = cases[0]
     entry = {
         "name": "segment_reduce",
@@ -4204,6 +4293,7 @@ def main() -> None:
         "families": families,
         "train": train,
         "sharded": sharded,
+        "dryrun": dry,
         "op_rates": {str(dt): op_rate(kind, dt)[1] for dt in ATTN_TOL},
         "kernels": entries,
     }

@@ -5,7 +5,9 @@
     python -m repro_torch.figures.run --live [--out DIR]
     python -m repro_torch.figures.run --chaos [--out DIR]
 
-Without a mode flag it renders Table IV and figs 1–8 into
+Without a mode flag it renders Table IV, figs 1–8 and the roofline table
+(from the dry-run records in ``build/dryrun/``, which
+``python -m repro_torch.launch.dryrun`` writes; empty without them) into
 ``--results`` (default ``build/figure_results/``) and prints
 ``name,us_per_call,derived`` CSV rows.  The backend defaults to a
 ``REPRO_BACKEND`` setting, else torch on the CUDA card; without a card the
@@ -53,6 +55,7 @@ def run_figures(backend=None, results: str | None = None) -> list:
         fig8_halo_heatmap,
         fig7_hlo_vs_traced,
         fig56_bw_msgrate,
+        roofline,
         table4_metrics,
     )
 
@@ -61,7 +64,6 @@ def run_figures(backend=None, results: str | None = None) -> list:
         paper_data.RESULTS = results
     paper_data.profiles.cache_clear()  # this run's backend and cache
     paper_data.RETRY_LOG.events.clear()
-    # The roofline table waits for the model stack's dry-run records.
     modules = [
         ("table4", table4_metrics),
         ("fig1", fig1_kripke_scaling),
@@ -71,6 +73,7 @@ def run_figures(backend=None, results: str | None = None) -> list:
         ("fig56", fig56_bw_msgrate),
         ("fig7", fig7_hlo_vs_traced),
         ("fig8", fig8_halo_heatmap),
+        ("roofline", roofline),
     ]
     out, errors = [], []
     ctx = use_backend(backend) if backend is not None else nullcontext()

@@ -4,7 +4,8 @@ A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written kernel, or the call raises.  Inside :func:`plain`, CUDA
 tensors go to the plain versions too: tests and ``chip_smoke.py`` use it to
 hold the model with kernels against the same model without them on the
-card.  Nothing on the serving or training path enters it.
+card, and the dry run (``launch/dryrun.py``) to capture the plain math.
+Nothing on the serving or training path enters it.
 
 Gradients: each forward kernel on a CUDA input that needs one runs through
 a ``torch.autograd.Function`` whose backward is a hand-written backward
@@ -142,6 +143,10 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
     """q (B,Hq,1,D) over keys [0, kv_len) of k/v (B,Hkv,S,D) -> (B,Hq,1,D)."""
+    if _is_dtensor(q):
+        qa, kva = _attn_axes()
+        return _on_shards(lambda q, k, v: decode_attention(q, k, v, kv_len),
+                          (q, k, v), (qa, kva, kva), qa)
     if _plain_depth:
         return _decode.decode_attention_plain(q, k, v, kv_len)
     return _decode.decode_attention(q, k, v, kv_len)

@@ -32,7 +32,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import replicate, shard_act
+from repro_torch.parallel.context import replicate, rows_product, shard_act, zero_pad
+
+#: the residual stream's logical axes, (batch, seq, d_model): where the
+#: reference constrains a layer's output, and where a block's output is
+#: placed before the residual add
+ACT = ("batch", "seq", "act_embed")
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -55,9 +60,13 @@ def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def norm(cfg, p, x):
-    if cfg.norm == "nonparam_ln":
-        return nonparam_layernorm(x)
-    return rmsnorm(x, p)
+    """The normalised ``x``, its sequence whole: a norm opens each block (and
+    the LM head), and under sequence parallelism it is where the sequence is
+    gathered for the block's products (Megatron-SP's all-gather, which GSPMD
+    places at the product: a DTensor cannot fold a split sequence dim into
+    the batch, as ``einsum`` and ``matmul`` do)."""
+    y = nonparam_layernorm(x) if cfg.norm == "nonparam_ln" else rmsnorm(x, p)
+    return shard_act(y, ("batch", None, "act_embed"))
 
 
 def norm_def(cfg) -> Optional[ParamDef]:
@@ -173,7 +182,7 @@ def attn_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
     q, k, v = _qkv(cfg, p, x, cos, sin)
     out = ops.flash_attention(q, k, v, causal=True)
     pad = (0, 0, 0, s_max - sq)
-    cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    cache = {"k": zero_pad(k, pad), "v": zero_pad(v, pad)}
     return _out_proj(p, out), cache
 
 
@@ -187,7 +196,9 @@ def attn_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
     k, v = cache["k"], cache["v"]
     k[:, :, pos : pos + 1] = k_new.to(k.dtype)
     v[:, :, pos : pos + 1] = v_new.to(v.dtype)
-    out = ops.decode_attention(q, k, v, pos + 1)
+    # a cache kept in another dtype (the reference's f32 caches of the
+    # hybrid family) is read in its own, as the reference promotes q
+    out = ops.decode_attention(q.to(k.dtype), k, v, pos + 1).to(q.dtype)
     return _out_proj(p, out), cache
 
 
@@ -277,7 +288,7 @@ def mla_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
     c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
     out = mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, _causal_mask(sq, x.device))
     pad = (0, 0, 0, s_max - sq)
-    return out, {"c_kv": F.pad(c_kv, pad), "k_rope": F.pad(k_rope, pad)}
+    return out, {"c_kv": zero_pad(c_kv, pad), "k_rope": zero_pad(k_rope, pad)}
 
 
 def mla_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
@@ -319,7 +330,7 @@ def ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.act == "geglu" else F.silu(g)
-    return shard_act(act * u, ("batch", "seq", "mlp")) @ p["w_down"]
+    return rows_product(shard_act(act * u, ("batch", "seq", "mlp")), p["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -119,9 +119,10 @@ def enc_layer(cfg, p, x, cos, sin) -> torch.Tensor:
         k = B.apply_rope(torch.einsum("bsd,dhk->bhsk", a, p["attn"]["wk"]), cos, sin)
         v = torch.einsum("bsd,dhk->bhsk", a, p["attn"]["wv"])
         o = ops.flash_attention(q, k, v, causal=False)
-        x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"])
-        x = x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
-        return shard_act(x, ("batch", "seq", "act_embed"))
+        x = x + shard_act(torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"]), B.ACT)
+        h = B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+        x = x + shard_act(h, B.ACT)
+        return shard_act(x, B.ACT)
 
 
 def _layers(defs: dict, n: int, generator, device) -> nn.ModuleList:
@@ -175,7 +176,7 @@ class EncDec(nn.Module):
 
     def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = shard_act(frames.to(self.embed["tok"].dtype), ("batch", "seq", "act_embed"))
+        x = shard_act(frames.to(self.embed["tok"].dtype), B.ACT)
         cos, sin = self._rope(x.shape[1])
         for lp in self.enc:
             x = enc_layer(cfg, lp, x, cos, sin)
@@ -188,19 +189,22 @@ class EncDec(nn.Module):
         with comm_region("self_attn"):
             h = B.norm(cfg, lp.get("norm1"), x)
             if mode == "train":
-                x = x + B.attn_train(cfg, lp["self_attn"], h, cos, sin)
+                h = B.attn_train(cfg, lp["self_attn"], h, cos, sin)
+                x = x + shard_act(h, B.ACT)
             elif mode == "prefill":
                 o, cache = B.attn_prefill(cfg, lp["self_attn"], h, cos, sin, s_max)
-                x = x + o
+                x = x + shard_act(o, B.ACT)
             else:
                 o, cache = B.attn_decode(cfg, lp["self_attn"], h, cos, sin, cache, pos)
-                x = x + o
+                x = x + shard_act(o, B.ACT)
         with comm_region("cross_attn"):
             h = B.norm(cfg, lp.get("norm_c"), x)
-            x = x + cross_attend(cfg, lp["cross"], h, enc_kv, step=mode == "decode")
+            h = cross_attend(cfg, lp["cross"], h, enc_kv, step=mode == "decode")
+            x = x + shard_act(h, B.ACT)
         with comm_region("mlp"):
-            x = x + B.ffn(cfg, lp["ffn"], B.norm(cfg, lp.get("norm2"), x))
-        return shard_act(x, ("batch", "seq", "act_embed")), cache
+            h = B.ffn(cfg, lp["ffn"], B.norm(cfg, lp.get("norm2"), x))
+            x = x + shard_act(h, B.ACT)
+        return shard_act(x, B.ACT), cache
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         with comm_region("embed"):
@@ -255,7 +259,8 @@ class EncDec(nn.Module):
         x = self._embed(token)
         # arange, not torch.tensor: a host->device copy would stall the step
         poss = torch.arange(pos, pos + 1, dtype=torch.int32, device=x.device)
-        cos, sin = B.rope_angles(poss, self.cfg.head_dim, self.cfg.rope_theta)
+        cos, sin = (replicate(t) for t in B.rope_angles(poss, self.cfg.head_dim,
+                                                         self.cfg.rope_theta))
         for i, lp in enumerate(self.dec):
             x, self_caches[i] = self._dec_layer(
                 lp, x, cos, sin, enc_kvs[i], "decode", cache=self_caches[i], pos=pos
@@ -264,17 +269,22 @@ class EncDec(nn.Module):
 
     # -- cache templates ---------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int, s_src: int) -> tuple:
-        cfg = self.cfg
-        n = cfg.n_layers
-        self_c = {
-            k: ((n,) + shape, ("layers",) + axes)
-            for k, (shape, axes) in B.attn_cache_shape(cfg, batch, s_max).items()
-        }
-        enc_kv = {
-            k: (
-                (n, batch, cfg.n_kv_heads, s_src, cfg.head_dim),
-                ("layers", "batch", "kv_heads", None, None),
-            )
-            for k in ("k", "v")
-        }
-        return (self_c, enc_kv)
+        return cache_shapes(self.cfg, batch, s_max, s_src)
+
+
+def cache_shapes(cfg, batch: int, s_max: int, s_src: int) -> tuple:
+    """(self-attention caches, the encoder's K/V): each (shape, logical
+    axes), stacked along a leading ``layers`` axis."""
+    n = cfg.n_layers
+    self_c = {
+        k: ((n,) + shape, ("layers",) + axes)
+        for k, (shape, axes) in B.attn_cache_shape(cfg, batch, s_max).items()
+    }
+    enc_kv = {
+        k: (
+            (n, batch, cfg.n_kv_heads, s_src, cfg.head_dim),
+            ("layers", "batch", "kv_heads", None, None),
+        )
+        for k in ("k", "v")
+    }
+    return (self_c, enc_kv)

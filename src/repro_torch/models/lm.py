@@ -53,7 +53,7 @@ from repro_torch.models.params import (
     stack_defs,
     unstack,
 )
-from repro_torch.parallel.context import replicate, shard_act
+from repro_torch.parallel.context import replicate, rows_product, shard_act
 
 # ---------------------------------------------------------------------------
 # Layer definitions
@@ -208,9 +208,10 @@ def _ffn_half(cfg, kind: str, p, x) -> tuple:
     if kind == "attn_moe":
         with comm_region("moe"):
             y, aux = MOE.moe_ffn(cfg, p["moe"], B.norm(cfg, p.get("norm2"), x))
-            return x + y, aux
+            return x + shard_act(y, B.ACT), aux
     with comm_region("mlp"):
-        return x + B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x)), 0.0
+        h = B.ffn(cfg, p["ffn"], B.norm(cfg, p.get("norm2"), x))
+        return x + shard_act(h, B.ACT), 0.0
 
 
 def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
@@ -218,14 +219,15 @@ def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
     if kind in _RECURRENT:
         train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            x = x + train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
-        return shard_act(x, ("batch", "seq", "act_embed")), 0.0
+            h = train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
+            x = x + shard_act(h, B.ACT)
+        return shard_act(x, B.ACT), 0.0
     train, _, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
-        x = x + train(cfg, p["attn"], h, ctx.cos, ctx.sin)
+        x = x + shard_act(train(cfg, p["attn"], h, ctx.cos, ctx.sin), B.ACT)
     x, aux = _ffn_half(cfg, kind, p, x)
-    return shard_act(x, ("batch", "seq", "act_embed")), aux
+    return shard_act(x, B.ACT), aux
 
 
 def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
@@ -236,14 +238,14 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
             h, cache = train(
                 cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
             )
-        return shard_act(x + h, ("batch", "seq", "act_embed")), cache
+        return shard_act(x + shard_act(h, B.ACT), B.ACT), cache
     _, prefill, _ = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         h, cache = prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
-        x = x + h
+        x = x + shard_act(h, B.ACT)
     x = _ffn_half(cfg, kind, p, x)[0]
-    return shard_act(x, ("batch", "seq", "act_embed")), cache
+    return shard_act(x, B.ACT), cache
 
 
 def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
@@ -251,12 +253,12 @@ def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
         _, decode = _RECURRENT[kind]
         with comm_region("ssm"):
             h, cache = decode(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), cache)
-            return x + h, cache
+            return x + shard_act(h, B.ACT), cache
     _, _, decode = _attention(cfg)
     with comm_region("attn"):
         h = B.norm(cfg, p.get("norm1"), x)
         h, cache = decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
-        x = x + h
+        x = x + shard_act(h, B.ACT)
     return _ffn_half(cfg, kind, p, x)[0], cache
 
 
@@ -276,8 +278,9 @@ def layer_cache_shape(cfg, kind: str, batch: int, s_max: int) -> dict:
 
 
 def _shared_out(scfg, sp, u, x, inv: int) -> torch.Tensor:
-    u = u + B.ffn(scfg, sp["ffn"], B.norm(scfg, sp.get("norm2"), u))
-    return x + torch.einsum("bsk,kd->bsd", u, sp["down"][inv])
+    h = B.ffn(scfg, sp["ffn"], B.norm(scfg, sp.get("norm2"), u))
+    u = u + shard_act(h, B.ACT)
+    return x + rows_product(u, sp["down"][inv])
 
 
 def shared_train(cfg, sp, x, x0, inv: int, ctx: Ctx) -> torch.Tensor:
@@ -285,7 +288,8 @@ def shared_train(cfg, sp, x, x0, inv: int, ctx: Ctx) -> torch.Tensor:
     with comm_region("shared_attn"):
         u = torch.cat([x, x0], dim=-1)
         h = B.norm(scfg, sp.get("norm1"), u)
-        u = u + B.attn_train(scfg, sp["attn"], h, ctx.cos, ctx.sin)
+        h = B.attn_train(scfg, sp["attn"], h, ctx.cos, ctx.sin)
+        u = u + shard_act(h, B.ACT)
         return _shared_out(scfg, sp, u, x, inv)
 
 
@@ -295,7 +299,7 @@ def shared_prefill(cfg, sp, x, x0, inv: int, ctx: Ctx) -> tuple:
         u = torch.cat([x, x0], dim=-1)
         h = B.norm(scfg, sp.get("norm1"), u)
         h, cache = B.attn_prefill(scfg, sp["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
-        return _shared_out(scfg, sp, u + h, x, inv), cache
+        return _shared_out(scfg, sp, u + shard_act(h, B.ACT), x, inv), cache
 
 
 def shared_decode(cfg, sp, x, x0, inv: int, ctx: Ctx, cache: dict) -> tuple:
@@ -304,7 +308,7 @@ def shared_decode(cfg, sp, x, x0, inv: int, ctx: Ctx, cache: dict) -> tuple:
         u = torch.cat([x, x0], dim=-1)
         h = B.norm(scfg, sp.get("norm1"), u)
         h, cache = B.attn_decode(scfg, sp["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
-        return _shared_out(scfg, sp, u + h, x, inv), cache
+        return _shared_out(scfg, sp, u + shard_act(h, B.ACT), x, inv), cache
 
 
 def shared_cache_shape(cfg, batch: int, s_max: int) -> dict:
@@ -329,6 +333,12 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run it on the host"
         )
     return device
+
+
+def shared_after(cfg, plan, gi: int) -> bool:
+    """Whether a hybrid model's shared block runs after group ``gi`` of
+    ``plan`` (``layer_plan(cfg)``): after each group but the last."""
+    return cfg.family == "hybrid" and gi < len(plan) - 1
 
 
 class LM(nn.Module):
@@ -369,8 +379,7 @@ class LM(nn.Module):
         return self.embed["tok"].device
 
     def _shared_after(self, gi: int) -> bool:
-        """Whether the shared block runs after group ``gi``."""
-        return self.cfg.family == "hybrid" and gi < len(self.plan) - 1
+        return shared_after(self.cfg, self.plan, gi)
 
     # -- embedding (with the VLM's vision prefix) --------------------------
     def _embed(self, batch: dict) -> torch.Tensor:
@@ -458,7 +467,7 @@ class LM(nn.Module):
         x = self._embed({"tokens": token})
         # arange, not torch.tensor: a host->device copy would stall the step
         poss = torch.arange(pos, pos + 1, dtype=torch.int32, device=x.device)
-        cos, sin = make_rope(cfg, poss)
+        cos, sin = (replicate(t) for t in make_rope(cfg, poss))
         ctx = Ctx(cos=cos, sin=sin, pos=pos)
         x0 = x
         ci = 0
@@ -474,12 +483,18 @@ class LM(nn.Module):
 
     # -- cache templates ---------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int) -> tuple:
-        out = []
-        for gi, (kind, n) in enumerate(self.plan):
-            per = layer_cache_shape(self.cfg, kind, batch, s_max)
-            out.append(
-                {k: ((n,) + sh, ("layers",) + axes) for k, (sh, axes) in per.items()}
-            )
-            if self._shared_after(gi):
-                out.append(shared_cache_shape(self.cfg, batch, s_max))
-        return tuple(out)
+        return cache_shapes(self.cfg, batch, s_max)
+
+
+def cache_shapes(cfg, batch: int, s_max: int) -> tuple:
+    """The caches' (shape, logical axes), each group's stacked along a
+    leading ``layers`` axis as in the reference, with a hybrid model's
+    shared-block cache after each group but the last."""
+    plan = layer_plan(cfg)
+    out = []
+    for gi, (kind, n) in enumerate(plan):
+        per = layer_cache_shape(cfg, kind, batch, s_max)
+        out.append({k: ((n,) + sh, ("layers",) + axes) for k, (sh, axes) in per.items()})
+        if shared_after(cfg, plan, gi):
+            out.append(shared_cache_shape(cfg, batch, s_max))
+    return tuple(out)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import replicate, shard_act
+from repro_torch.parallel.context import replicate, shard_act, splits_evenly
 
 
 def moe_defs(cfg) -> dict:
@@ -94,17 +94,19 @@ def moe_ffn(cfg, p, x: torch.Tensor) -> tuple:
     if pad:
         xf = torch.cat([xf, xf.new_zeros((pad, D))], dim=0)
     xg = xf.reshape(-1, group, D)
-    xg = shard_act(xg, ("moe_groups", None, "act_embed"))
+    # a decode step's few groups may not split over the data axes
+    groups = "moe_groups" if splits_evenly(xg.shape[0], "moe_groups") else None
+    xg = shard_act(xg, (groups, None, "act_embed"))
 
     combine, dispatch, aux = _route(cfg, p, xg)
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg)
-    expert_in = shard_act(expert_in, ("experts", "moe_groups", "moe_cap", "act_embed"))
+    expert_in = shard_act(expert_in, ("experts", groups, "moe_cap", "act_embed"))
     g = torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])
     u = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.act == "geglu" else F.silu(g)
-    h = shard_act(act * u, ("experts", "moe_groups", "moe_cap", "expert_mlp"))
+    h = shard_act(act * u, ("experts", groups, "moe_cap", "expert_mlp"))
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
-    expert_out = shard_act(expert_out, ("experts", "moe_groups", "moe_cap", "act_embed"))
+    expert_out = shard_act(expert_out, ("experts", groups, "moe_cap", "act_embed"))
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
     return y.reshape(-1, D)[:tokens].reshape(B, S, D), aux

@@ -56,6 +56,55 @@ def shard_act(x, logical_axes: tuple):
                                                               *logical_axes))
 
 
+def _seq_split(x) -> bool:
+    """Whether ``x`` is a DTensor split along dim 1, the sequence of a
+    (batch, seq, ...) activation."""
+    from torch.distributed.tensor import Shard
+
+    return _is_dtensor(x) and any(isinstance(p, Shard) and p.dim == 1
+                                  for p in x.placements)
+
+
+def rows_product(x, w):
+    """``x @ w`` for x (batch, seq, K); where x is a DTensor split along its
+    sequence, each rank multiplies its own rows by the whole weight (the
+    weight gathered), as GSPMD does for rows split along the sequence, and
+    the product keeps x's placements.  The weight's gradient is a partial
+    sum over every mesh dim that splits the rows, reduced as the gather's
+    backward returns it to the weight's placements.  A DTensor cannot fold
+    a split sequence dim into the batch, as ``matmul`` does."""
+    if not _seq_split(x):
+        return x @ w
+    import torch
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = list(x.placements)
+    w_grad = [Partial() if p.is_shard() else Replicate() for p in rows]
+    return local_map(torch.matmul, out_placements=rows,
+                     in_placements=(rows, [Replicate()] * mesh.ndim),
+                     in_grad_placements=(rows, w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w)
+
+
+def splits_evenly(size: int, logical: str) -> bool:
+    """Whether a dim of ``size`` splits evenly over the mesh axes the plan
+    gives ``logical`` (always, without a context).  GSPMD pads an uneven
+    split; a DTensor's cannot be reshaped, so a caller replicates such a
+    dim instead (each device then holds what GSPMD's padded shard holds at
+    most)."""
+    if _CTX.mesh is None or _CTX.plan is None:
+        return True
+    axes = _CTX.plan.get(logical)
+    names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    dims = tuple(_CTX.mesh.mesh_dim_names or ())
+    n = 1
+    for a in names:
+        n *= _CTX.mesh.size(dims.index(a))
+    return size % n == 0
+
+
 def replicate(x):
     """``x`` as a DTensor replicated over the context's mesh, when a context
     is installed and ``x`` is a plain tensor; otherwise ``x``.  Every rank
@@ -66,6 +115,24 @@ def replicate(x):
 
     mesh = _CTX.mesh
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def zero_pad(x, pad: tuple):
+    """``F.pad(x, pad)`` with zeros; a DTensor none of whose padded dims is
+    split is padded shard by shard, its placements kept (torch 2.11's
+    DTensor rule for ``pad`` fails on a 2-D mesh)."""
+    import torch.nn.functional as F
+
+    if not _is_dtensor(x):
+        return F.pad(x, pad)
+    padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+    if any(p.is_shard() and p.dim in padded for p in x.placements):
+        return F.pad(x, pad)
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = list(x.placements)
+    return local_map(lambda t: F.pad(t, pad), out_placements=placements,
+                     in_placements=(placements,), device_mesh=x.device_mesh)(x)
 
 
 def elementwise(fn, x):

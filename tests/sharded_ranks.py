@@ -1,10 +1,11 @@
-"""The ``run_ranks`` targets of ``test_torch_sharded_train.py`` and
-``test_torch_pipeline.py``, in a module of their own so that the spawned ranks import them without the test module
+"""The ``run_ranks`` targets of ``test_torch_sharded_train.py``,
+``test_torch_seq_parallel.py`` and ``test_torch_pipeline.py``, in a module of their own so that the spawned ranks import them without the test module
 (the ranks inherit the parent's ``sys.path``)."""
 
 import contextlib
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -203,3 +204,99 @@ def family_steps(archs: list) -> dict:
             out[arch] = ("failed", lines[-1],
                          [ln.strip() for ln in lines if "repro_torch" in ln][-2:])
     return out
+
+
+#: the reduced archs held under ``repro``'s default plan (the sequence split
+#: over ``model`` between layers), with the config fields set over the
+#: reduced one
+SEQ_PARALLEL = {"olmo-1b": {"n_heads": 4, "n_kv_heads": 4}, "zamba2-1.2b": {},
+                "granite-moe-3b-a800m": {}, "seamless-m4t-medium": {}}
+
+
+def seq_parallel_config(arch: str):
+    return registry.get(arch).reduced(**SEQ_PARALLEL[arch])
+
+
+@contextlib.contextmanager
+def exact_f64(on: bool):
+    """f64 throughout: the port's f32 islands (``.float()`` in its norms,
+    scores and logits, ``torch.float32`` where it names it) lifted to f64,
+    as ``train_parity._exact`` lifts repro's; the scans' plain versions
+    take f64 too."""
+    if not on:
+        yield
+        return
+    from repro_torch.kernels import mlstm_scan, ssd_scan
+
+    with mock.patch.object(torch, "float32", torch.float64), \
+            mock.patch.object(torch.Tensor, "float", lambda t: t.double()), \
+            mock.patch.object(ssd_scan, "DTYPES", ssd_scan.DTYPES + (torch.float64,)), \
+            mock.patch.object(mlstm_scan, "DTYPES", mlstm_scan.DTYPES + (torch.float64,)):
+        yield
+
+
+def seq_parallel_steps(params_path: str) -> dict:
+    """On each of 8 ranks, each of ``SEQ_PARALLEL``'s archs on a (2, 4)
+    mesh under ``repro``'s default plan, from the parameters saved in
+    ``params_path`` (``{arch}/{name}``, the port's state dict), in f32 and
+    in f64 (``exact_f64``): (arch, dtype name) -> ``_seq_parallel_arch``."""
+    from repro_torch.parallel.sharding import default_plan
+
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    out = {}
+    with np.load(params_path) as f:
+        for arch in SEQ_PARALLEL:
+            cfg = seq_parallel_config(arch)
+            state = {k.split("/", 1)[1]: torch.from_numpy(f[k]) for k in f.files
+                     if k.split("/", 1)[0] == arch}
+            plan = default_plan(cfg, {"data": 2, "model": 4})
+            for exact in (False, True):
+                with exact_f64(exact):
+                    out[arch, "float64" if exact else "float32"] = _seq_parallel_arch(
+                        cfg, mesh, plan, state)
+    return out
+
+
+def _seq_parallel_arch(cfg, mesh, plan, state: dict) -> dict:
+    """One train step (loss, gradient norm, and each parameter's gradient
+    norm as the step's optimizer receives it) and a prefill's logits with
+    the sequence split over ``model``; then, without the split (the dry
+    run's decode plan), a prefill and one decode step of the prompt's last
+    token at position 32, its logits gathered whole.  The model and the
+    batch in ``torch.float32`` (f64 under ``exact_f64``)."""
+    apply_updates = adamw.apply_updates
+    batch = {k: v.to(torch.float32) if v.is_floating_point() else v
+             for k, v in _family_batch(cfg).items()}
+    res = {}
+
+    def recorded(opt_cfg, params, grads, *rest):
+        res["grads"] = {n: float(g.full_tensor().double().norm())
+                        for n, g in grads.items()}
+        return apply_updates(opt_cfg, params, grads, *rest)
+
+    for name, p in (("seq", plan), ("decode", plan.override(seq=None))):
+        with parallel_context(mesh, p):
+            model = build_model(cfg, device="cpu").to(torch.float32)
+            model.load_state_dict(state)
+            distribute_params(model, mesh, p)
+            dt = {k: distribute_tensor(v, mesh, p.placements(
+                mesh, "batch", "seq", *(None,) * (v.dim() - 2)), src_data_rank=None)
+                for k, v in batch.items()}
+            prompt = {k: v for k, v in dt.items() if k != "labels"}
+            if name == "seq":
+                step = steps.make_train_step(cfg, adamw.OptConfig(
+                    lr=1e-3, warmup_steps=1, total_steps=4))
+                with torch.no_grad():
+                    res["prefill"] = model.prefill(prompt, 40)[0].full_tensor().numpy()
+                opt = adamw.init_state(dict(model.named_parameters()))
+                with mock.patch.object(adamw, "apply_updates", recorded):
+                    _, m = step(model, opt, dt)
+                res["loss"], res["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+            else:
+                with torch.no_grad():
+                    _, caches = model.prefill(prompt, 40)
+                    token = distribute_tensor(
+                        batch["tokens"][:, -1:].contiguous(), mesh,
+                        p.placements(mesh, "batch", "seq"), src_data_rank=None)
+                    res["decode"] = model.decode(caches, token, 32)[0].full_tensor().numpy()
+    return res

@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
     n = int(proc.stdout.split()[-1])
-    assert n >= 83, proc.stdout
+    assert n >= 87, proc.stdout
     imported = set(proc.stdout.split())
     for name in (
         "repro_torch.kernels.ssd_scan",
@@ -95,6 +95,10 @@ def test_every_port_module_imports_without_jax():
         "repro_torch.parallel.context",
         "repro_torch.parallel.pipeline",
         "repro_torch.launch.mesh",
+        "repro_torch.core.hlo_cost",
+        "repro_torch.launch.dryrun",
+        "repro_torch.figures.roofline",
+        "repro_torch.figures.inspect_cell",
     ):
         assert name in imported, proc.stdout
 
@@ -103,7 +107,7 @@ def test_no_source_imports_jax_or_repro():
     banned = {"jax", "jaxlib", "repro", "ml_dtypes"}
     offenders = []
     sources = _port_sources()
-    assert len(sources) >= 84
+    assert len(sources) >= 88
     names = {os.path.relpath(p, _ROOT) for p in sources}
     assert {
         "src/repro_torch/kernels/mlstm_scan.py",
@@ -138,6 +142,10 @@ def test_no_source_imports_jax_or_repro():
         "src/repro_torch/parallel/context.py",
         "src/repro_torch/parallel/pipeline.py",
         "src/repro_torch/launch/mesh.py",
+        "src/repro_torch/core/hlo_cost.py",
+        "src/repro_torch/launch/dryrun.py",
+        "src/repro_torch/figures/roofline.py",
+        "src/repro_torch/figures/inspect_cell.py",
     } <= names
     for path in sources:
         with open(path) as f:

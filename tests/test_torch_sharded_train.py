@@ -47,12 +47,10 @@ parameters and the AdamW state as DTensors.  Held here:
   1e-5, and the mesh constructors' contracts.
 """
 
-import contextlib
 import dataclasses
 import json
 import os
 import tempfile
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -68,7 +66,6 @@ from repro.train import steps as jax_steps
 from repro_torch import interop
 from repro_torch.core.ranks import run_ranks
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.kernels import mlstm_scan, ssd_scan
 from repro_torch.launch import mesh as M
 from repro_torch.launch import train as launch
 from repro_torch.models.lm import layer_plan
@@ -97,28 +94,12 @@ def _model(run, state: dict, dtype) -> torch.nn.Module:
     return model
 
 
-@contextlib.contextmanager
-def _exact(on: bool):
-    """f64 throughout: the port's f32 islands (``.float()`` in its norms,
-    scores and logits, ``torch.float32`` where it names it) lifted to f64,
-    as ``train_parity._exact`` lifts repro's; the scans' plain versions
-    take f64 too."""
-    if not on:
-        yield
-        return
-    with mock.patch.object(torch, "float32", torch.float64), \
-            mock.patch.object(torch.Tensor, "float", lambda t: t.double()), \
-            mock.patch.object(ssd_scan, "DTYPES", ssd_scan.DTYPES + (torch.float64,)), \
-            mock.patch.object(mlstm_scan, "DTYPES", mlstm_scan.DTYPES + (torch.float64,)):
-        yield
-
-
 def _loss_and_grads(run, state: dict, k: int, exact: bool = False) -> tuple:
     cfg = sharded_ranks.run_config(run)
     ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=run.seq_len,
                                 global_batch=run.global_batch))
     model = _model(run, state, torch.float64 if exact else torch.float32)
-    with _exact(exact):
+    with sharded_ranks.exact_f64(exact):
         loss, _ = steps.make_loss_fn(cfg)(model.requires_grad_(True), ds.batch(k))
         loss.backward()
     grads = {n: p.grad.double() for n, p in model.named_parameters()}
@@ -355,7 +336,7 @@ def _family_step(cfg, exact: bool) -> tuple:
     model = build_model(cfg, device="cpu").to(dtype).requires_grad_(True)
     batch = {k: v.to(dtype) if v.is_floating_point() else v
              for k, v in sharded_ranks._family_batch(cfg).items()}
-    with _exact(exact):
+    with sharded_ranks.exact_f64(exact):
         loss, _ = steps.make_loss_fn(cfg)(model, batch)
         loss.backward()
     gn = float(sum((p.grad.double() ** 2).sum() for p in model.parameters()) ** 0.5)
