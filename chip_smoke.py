@@ -234,7 +234,15 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    type; (b) one device at phase 17's cell (2 x 4096, remat "full"): its
    ``model_flops`` equal to phase 17's, its ``compute_s`` at most phase
    17's measured warm step, and its predicted memory beside the measured
-   peak CUDA MB.
+   peak CUDA MB; (c) deepseek-coder-33b train_4k and xlstm-1.3b
+   decode_32k, whose heads do not divide the model axis, at 2 layers on
+   the fake 16 x 16 mesh with the published embed rule, each ``ok``; on
+   the card, (d) the flash kernel on a rank's query rows at an offset of
+   the keys (``ops.flash_attention_rows``: K/V cut to the rows' end),
+   forward and backward, against the plain version masked over the whole
+   K, and (e) the decode kernel's log-sum-exp over a slice of a cache, a
+   slice past ``kv_len`` launching nothing, and two halves merged by their
+   log-sum-exp, against the plain version.
 
 It prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -4016,6 +4024,157 @@ def sharded_phase(train: dict, smi: str) -> dict:
     return row
 
 
+#: phase 19 (c)'s cells: the archs whose heads do not divide the model axis,
+#: at 2 layers on the fake 16 x 16 mesh with the published config's embed rule
+HEADS_CELLS = (("deepseek-coder-33b", "train_4k"), ("xlstm-1.3b", "decode_32k"))
+#: phase 19 (d): the flash kernel on a rank's query rows at an offset of the
+#: keys (label, batch, q heads, kv heads, keys, rows, offset, head dim)
+ROWS_CASES = (("deepseek-coder-33b rows 1024-1279 of 2048", 1, 56, 8, 2048, 256, 1024, 128),
+              ("gemma-2b rows 448-511 of 512", 2, 8, 1, 512, 64, 448, 256))
+#: phase 19 (e): the decode kernel over one slice of a split cache (label,
+#: batch, q heads, kv heads, slice length, the slice's filled keys)
+SLICE_CASES = (("deepseek-coder-33b slice of 2048, 1500 filled", 4, 56, 8, 2048, 1500),
+               ("deepseek-coder-33b slice of 256, 100 filled", 8, 56, 8, 256, 100),
+               ("slice past kv_len", 8, 56, 8, 256, 0))
+
+
+def heads_cells(smi: str) -> list:
+    """Phase 19 (c): ``lower_cell`` of ``HEADS_CELLS`` at their published
+    shapes, each required ``ok``, FLOPs and collectives a device logged."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import default_plan
+
+    rows = []
+    for arch, shape in HEADS_CELLS:
+        embed = default_plan(registry.get(arch), {"data": 16, "model": 16}).get("embed")
+        t = time.perf_counter()
+        try:
+            rec, gm = dryrun.lower_cell(arch, shape, multi_pod=False,
+                                        plan_overrides={"embed": embed},
+                                        cfg_overrides={"n_layers": 2})
+        except Exception as e:  # reported, then the phase fails
+            fail(f"dryrun: {arch} {shape} 16x16 at 2 layers failed: {type(e).__name__}: {e}")
+        seconds = time.perf_counter() - t
+        del gm
+        if rec["status"] != "ok" or dist.is_initialized():
+            fail(f"dryrun: {arch} {shape} gave {rec['status']}, a process group left up: "
+                 f"{dist.is_initialized()}")
+        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "plan": rec["plan"],
+               "status": rec["status"], "seconds": seconds, "lower_s": rec["lower_s"],
+               "torch": rec["torch"], "cost": rec["cost"],
+               "collectives": rec["collectives"], "roofline": rec["roofline"]}
+        log(f"dryrun (c) {arch} {shape} 16x16, 2 layers, embed -> {embed}: ok in "
+            f"{seconds:.1f} s (torch {rec['torch']}); {rec['cost']['flops_per_device']:.0f} "
+            f"FLOPs a device, collectives by region {rec['collectives']['by_region']} [{smi}]")
+        rows.append(row)
+    return rows
+
+
+def rows_offset_cases() -> list:
+    """Phase 19 (d): ``ops.flash_attention_rows`` on the card (the flash
+    kernel, forward and backward, over K/V cut to the rows' end) against
+    the plain version over the whole K masked at the offset, forward and
+    autograd, at bf16; its launches counted, K/V's gradient past the rows'
+    end exactly 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    dtype = torch.bfloat16
+    rows = []
+    for label, b, hq, hkv, sk, sq, off, d in ROWS_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
+
+        q, k, v = randn(b, hq, sq, d), randn(b, hkv, sk, d), randn(b, hkv, sk, d)
+        dout = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        before = (fa.launch_count(), fab.launch_count())
+        got = ops.flash_attention_rows(q, k, v, off)
+        grads = torch.autograd.grad(got, (q, k, v), dout)
+        launched = (fa.launch_count() - before[0], fab.launch_count() - before[1])
+        if launched != (1, 1):
+            fail(f"dryrun: rows {label}: {launched} flash / flash backward launches, not 1 each")
+        want = fa.flash_attention_rows_plain(q, k, v, off)
+        want_grads = torch.autograd.grad(want, (q, k, v), dout)
+        tol = ATTN_TOL[dtype]
+        excess = row_scaled_excess(got.detach(), want.detach(), tol)
+        bwd_excess = _bwd_excess(grads, want_grads, BWD_TOL[dtype])
+        tail = max(float(g[:, :, off + sq:].abs().max()) if off + sq < sk else 0.0
+                   for g in grads[1:])
+        err = float((got - want).detach().abs().max())
+        if excess > 0 or bwd_excess > 0 or tail != 0:
+            fail(f"dryrun: rows {label}: forward excess {excess}, backward excess "
+                 f"{bwd_excess}, K/V gradient past the rows {tail}")
+        row = {"case": label, "shape": [b, hq, hkv, sk, sq, off, d], "max_abs_err": err,
+               "row_scaled_excess": excess, "bwd_excess": bwd_excess,
+               "bwd_max_abs_err": max(float((g - w).abs().max())
+                                      for g, w in zip(grads, want_grads))}
+        log(f"dryrun (d) flash rows {label} {row['shape']} bf16: max_abs_err={err} "
+            f"row_scaled_excess={excess} bwd_excess={bwd_excess} "
+            f"bwd_max_abs_err={row['bwd_max_abs_err']}")
+        rows.append(row)
+    return rows
+
+
+def slice_cases() -> list:
+    """Phase 19 (e): ``ops.decode_attention_slice`` on the card (the decode
+    kernel with its log-sum-exp) against the plain version's output and
+    log-sum-exp, a slice past ``kv_len`` launching nothing (out 0, lse
+    -inf); and a cache's two halves merged by their log-sum-exp against
+    the plain version over the whole cache."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    dtype = torch.bfloat16
+    tol = ATTN_TOL[dtype]
+    rows = []
+    for label, b, hq, hkv, sk, kv_len in SLICE_CASES:
+        q = torch.randn((b, hq, 1, 128), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, hkv, sk, 128), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        before = dec.launch_count()
+        out, lse = ops.decode_attention_slice(q, k, v, kv_len)
+        launched = dec.launch_count() - before
+        if kv_len == 0:
+            if launched or out.abs().max() != 0 or not torch.isneginf(lse).all():
+                fail(f"dryrun: slice {label}: {launched} launches, max|out| "
+                     f"{float(out.abs().max())}, lse not all -inf")
+            rows.append({"case": label, "launches": launched})
+            log(f"dryrun (e) decode slice {label}: no launch, out 0, lse -inf")
+            continue
+        want, want_lse = dec.decode_attention_plain(q, k, v, kv_len, return_lse=True)
+        n_split = dec.card_split_plan(q, k, kv_len)[0]
+        excess = row_scaled_excess(out, want, tol)
+        lse_err = float((lse - want_lse).abs().max())
+        # the halves [0, h) and [h, sk), merged by their log-sum-exp
+        h = sk // 2
+        parts = [ops.decode_attention_slice(q, k[:, :, :h], v[:, :, :h], kv_len),
+                 ops.decode_attention_slice(q, k[:, :, h:], v[:, :, h:], kv_len - h)]
+        top = torch.maximum(parts[0][1], parts[1][1])
+        w = [torch.exp(p[1] - top)[..., None] for p in parts]
+        merged = sum(p[0].float() * wi for p, wi in zip(parts, w)) / sum(w)
+        merged_excess = row_scaled_excess(merged, want, tol)
+        if launched != 1 or excess > 0 or lse_err > LSE_ATOL or merged_excess > 0:
+            fail(f"dryrun: slice {label}: {launched} launches, excess {excess}, lse "
+                 f"{lse_err}, merged halves' excess {merged_excess}")
+        row = {"case": label, "shape": [b, hq, hkv, sk, kv_len], "n_split": n_split,
+               "launches": launched, "max_abs_err": float((out - want).abs().max()),
+               "row_scaled_excess": excess, "lse_max_abs_err": lse_err,
+               "merged_excess": merged_excess}
+        log(f"dryrun (e) decode slice {label} {row['shape']} bf16, n_split {n_split}: "
+            f"max_abs_err={row['max_abs_err']} row_scaled_excess={excess} "
+            f"lse_max_abs_err={lse_err} merged halves' excess={merged_excess}")
+        rows.append(row)
+    return rows
+
+
 def dryrun_phase(train: dict, smi: str) -> dict:
     """Phase 19: the dry run on the card's host.  (a) ``lower_cell`` of
     olmo-1b at ``train_4k`` on the fake 16 x 16 mesh (256 ranks of torch's
@@ -4073,7 +4232,11 @@ def dryrun_phase(train: dict, smi: str) -> dict:
         f"{olmo['warm_step_s']:.3f} s; memory_s {rf1['memory_s']:.4f} s; predicted "
         f"{predicted_mb:.1f} MB {mem1} against the measured peak "
         f"{olmo['peak_cuda_mb']:.1f} MB (ratio {ratio:.3f}) [{smi}]")
-    return {"cell": {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices", "plan",
+    heads = heads_cells(smi)
+    rows = rows_offset_cases()
+    slices = slice_cases()
+    return {"heads_cells": heads, "flash_rows": rows, "decode_slices": slices,
+            "cell": {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices", "plan",
                                          "status", "lower_s", "device_type", "torch", "kernels",
                                          "memory", "cost", "collectives", "roofline")},
             "cell_s": cell_s,

@@ -29,6 +29,10 @@
 //     per (b, q head) takes the max of the splits' m, rescales their l and
 //     acc by exp(m_s - m) and writes sum(acc) / max(sum(l), 1e-30) in q's
 //     dtype;
+//   * asked for it (lse not null), the kernel that writes a row's output
+//     also writes its log-sum-exp m + log(l) in f32: the outputs of several
+//     slices of one cache merge by it (each slice's weight is
+//     exp(lse_s - max lse));
 //   * keys [0, kv_len) are attended (kv_len exclusive, as in the TPU
 //     kernel); bf16 or f32; D in {32, 64, 128, 256}; any strides with a unit
 //     stride on the head dim and 16-byte aligned K/V bases and strides.
@@ -137,7 +141,8 @@ __global__ void __launch_bounds__(kThreads)
     decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ out,
                           float* __restrict__ part_acc,
-                          float* __restrict__ part_ml, Strides qs, Strides ks,
+                          float* __restrict__ part_ml,
+                          float* __restrict__ lse, Strides qs, Strides ks,
                           Strides vs, Strides os, int n_q_heads,
                           int n_kv_heads, int group, int kv_len,
                           int keys_per_split, float scale) {
@@ -338,6 +343,9 @@ __global__ void __launch_bounds__(kThreads)
       if (n_split == 1) {
         const float denom = fmaxf(l_s[g], 1e-30f);
         out[b * os.b + h * os.h + d_acc] = from_float<T>(acc[i] / denom);
+        if (lse != nullptr && d_acc == 0) {
+          lse[static_cast<int64_t>(b) * n_q_heads + h] = m_s[g] + logf(l_s[g]);
+        }
       } else {
         const int64_t row =
             (static_cast<int64_t>(b) * n_q_heads + h) * n_split + split;
@@ -357,8 +365,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(D)
     decode_combine_kernel(const float* __restrict__ part_acc,
                           const float* __restrict__ part_ml,
-                          T* __restrict__ out, Strides os, int n_q_heads,
-                          int n_split) {
+                          T* __restrict__ out, float* __restrict__ lse,
+                          Strides os, int n_q_heads, int n_split) {
   const int bh = blockIdx.x;
   const int b = bh / n_q_heads;
   const int h = bh % n_q_heads;
@@ -377,6 +385,9 @@ __global__ void __launch_bounds__(D)
     o = fmaf(acc[s * D + d], w, o);
   }
   out[b * os.b + h * os.h + d] = from_float<T>(o / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) {
+    lse[bh] = m + logf(l);
+  }
 }
 
 template <typename T, int D>
@@ -400,8 +411,9 @@ cudaError_t blocks_per_sm(int* blocks) {
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int64_t* st, float* part_acc, float* part_ml,
-                   int batch, int n_q_heads, int n_kv_heads, int kv_len,
-                   int n_split, int keys_per_split, cudaStream_t stream) {
+                   float* lse, int batch, int n_q_heads, int n_kv_heads,
+                   int kv_len, int n_split, int keys_per_split,
+                   cudaStream_t stream) {
   using C = Cfg<T, D>;
   cudaError_t err = allow_smem<T, D>();
   if (err != cudaSuccess) {
@@ -415,7 +427,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const Strides os{st[9], st[10], st[11]};
   decode_partial_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), part_acc, part_ml,
+      static_cast<const T*>(v), static_cast<T*>(out), part_acc, part_ml, lse,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, os, n_q_heads, n_kv_heads, group, kv_len,
       keys_per_split, scale);
@@ -425,31 +437,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   decode_combine_kernel<T, D>
       <<<static_cast<unsigned>(batch * n_q_heads), D, 0, stream>>>(
-          part_acc, part_ml, static_cast<T*>(out), os, n_q_heads, n_split);
+          part_acc, part_ml, static_cast<T*>(out), lse, os, n_q_heads,
+          n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out,
                        const int64_t* st, float* part_acc, float* part_ml,
-                       int batch, int n_q_heads, int n_kv_heads, int kv_len,
-                       int head_dim, int n_split, int keys_per_split,
-                       cudaStream_t stream) {
+                       float* lse, int batch, int n_q_heads, int n_kv_heads,
+                       int kv_len, int head_dim, int n_split,
+                       int keys_per_split, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, out, st, part_acc, part_ml, batch,
+      return launch<T, 32>(q, k, v, out, st, part_acc, part_ml, lse, batch,
                            n_q_heads, n_kv_heads, kv_len, n_split,
                            keys_per_split, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, st, part_acc, part_ml, batch,
+      return launch<T, 64>(q, k, v, out, st, part_acc, part_ml, lse, batch,
                            n_q_heads, n_kv_heads, kv_len, n_split,
                            keys_per_split, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, st, part_acc, part_ml, batch,
+      return launch<T, 128>(q, k, v, out, st, part_acc, part_ml, lse, batch,
                             n_q_heads, n_kv_heads, kv_len, n_split,
                             keys_per_split, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, st, part_acc, part_ml, batch,
+      return launch<T, 256>(q, k, v, out, st, part_acc, part_ml, lse, batch,
                             n_q_heads, n_kv_heads, kv_len, n_split,
                             keys_per_split, stream);
     default:
@@ -466,11 +479,13 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out,
 // 1 <= kv_len <= S.  The keys are cut into n_split ranges of keys_per_split
 // (the last range may be shorter, none is empty);
 // part_acc (B, Hq, n_split, D) and part_ml (B, Hq, n_split, 2) are f32
-// scratch, unused when n_split is 1.
+// scratch, unused when n_split is 1.  lse, (B, Hq) f32 or null, receives
+// each row's log-sum-exp.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, void* out,
                                       const int64_t* strides, void* part_acc,
-                                      void* part_ml, int batch, int n_q_heads,
+                                      void* part_ml, void* lse, int batch,
+                                      int n_q_heads,
                                       int n_kv_heads, int kv_len,
                                       int head_dim, int dtype, int n_split,
                                       int keys_per_split, void* stream) {
@@ -486,13 +501,15 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* acc = static_cast<float*>(part_acc);
   float* ml = static_cast<float*>(part_ml);
+  float* ls = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return launch_dim<float>(q, k, v, out, strides, acc, ml, batch,
+      return launch_dim<float>(q, k, v, out, strides, acc, ml, ls, batch,
                                n_q_heads, n_kv_heads, kv_len, head_dim,
                                n_split, keys_per_split, st);
     case 1:
-      return launch_dim<__nv_bfloat16>(q, k, v, out, strides, acc, ml, batch,
+      return launch_dim<__nv_bfloat16>(q, k, v, out, strides, acc, ml, ls,
+                                       batch,
                                        n_q_heads, n_kv_heads, kv_len,
                                        head_dim, n_split, keys_per_split, st);
     default:

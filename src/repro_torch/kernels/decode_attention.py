@@ -10,6 +10,8 @@ of up to 8 query heads, range) walks its range in 64-key tiles staged by
 16-byte ``cp.async`` copies, double-buffered, with an f32 online softmax, and
 writes its partial (max, sum, accumulator) in f32; a second kernel combines
 the ranges.  With one range the first kernel writes the output itself.
+Asked for it, the last kernel also writes each row's log-sum-exp, ``max +
+log(sum)``, by which the outputs over several slices of a cache merge.
 
 :func:`decode_attention` is the wrapper: a CPU tensor runs
 :func:`decode_attention_plain` (``repro/kernels/ref.py::decode_attention_ref``
@@ -98,29 +100,39 @@ def split_plan(
     return -(-kv_len // per), per
 
 
-def decode_attention_plain(q, k, v, kv_len: int) -> torch.Tensor:
-    """Plain PyTorch version: the direct definition, f32 softmax.
-
-    q (B,Hq,1,D); k/v (B,Hkv,S,D); keys ``[0, kv_len)`` are attended.
-    """
-    kv_len = int(kv_len)
-    _check(q, k, v, kv_len)
+def _scores_plain(q, k, kv_len: int) -> torch.Tensor:
+    """The scaled f32 scores (B,Hq,1,S), NEG_INF past ``kv_len``."""
     d = q.shape[-1]
     rep = q.shape[1] // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     mask = torch.arange(k.shape[2], device=q.device) < kv_len
-    scores = torch.where(mask, scores, NEG_INF)
+    return torch.where(mask, scores, NEG_INF)
+
+
+def decode_attention_plain(q, k, v, kv_len: int, *, return_lse: bool = False):
+    """Plain PyTorch version: the direct definition, f32 softmax.
+
+    q (B,Hq,1,D); k/v (B,Hkv,S,D); keys ``[0, kv_len)`` are attended.  With
+    ``return_lse``, also the log-sum-exp the kernel writes: each row's
+    natural log-sum-exp of its scaled scores, (B,Hq,1) f32.
+    """
+    kv_len = int(kv_len)
+    _check(q, k, v, kv_len)
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        v = v.repeat_interleave(rep, dim=1)
+    scores = _scores_plain(q, k, kv_len)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(scores, dim=-1)) if return_lse else out
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.repro_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     occ = lib.repro_decode_blocks_per_sm
     occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -161,25 +173,31 @@ def card_split_plan(q, k, kv_len: int) -> tuple:
     return split_plan(b, hkv, hq // hkv, int(kv_len), **wave)
 
 
-def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
+def decode_attention(q, k, v, kv_len: int, *, return_lse: bool = False):
     """q (B,Hq,1,D) over keys ``[0, kv_len)`` of k/v (B,Hkv,S,D) -> (B,Hq,1,D).
 
     ``kv_len`` is a host int, exclusive.  A CPU tensor runs
     :func:`decode_attention_plain`; a CUDA tensor launches the kernels on the
-    current stream, with the keys cut by :func:`split_plan`.
+    current stream, with the keys cut by :func:`split_plan`.  With
+    ``return_lse`` the result is ``(out, lse)``, lse the (B,Hq,1) f32
+    log-sum-exp of each row's scores (on the CPU, that of
+    :func:`decode_attention_plain`), which merges the outputs of
+    several slices of one cache.
     """
     kv_len = int(kv_len)
     _check(q, k, v, kv_len)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len)
+        return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
     check_kernel_inputs("decode_attention", q)
     global _launches
     lib = _library()
     b, hq, _, d = q.shape
     hkv = k.shape[1]
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     q, k, v, strides = kernel_args(q, k, v, out)
     check_aligned("decode_attention", k, v)
     n_split, per = card_split_plan(q, k, kv_len)
@@ -198,6 +216,7 @@ def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
             ctypes.addressof(strides),
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b,
             hq,
             hkv,
@@ -211,4 +230,4 @@ def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
     if err:
         _raise(lib, err, "kernel")
     _launches += 1
-    return out
+    return (out, lse) if return_lse else out

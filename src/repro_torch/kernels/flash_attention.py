@@ -143,8 +143,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
-def _scores(q, k, causal: bool) -> torch.Tensor:
-    """The scaled f32 scores (B,Hq,Sq,Sk), masked to NEG_INF when causal."""
+def flash_attention_rows_plain(q, k, v, offset: int) -> torch.Tensor:
+    """Plain PyTorch version of causal attention of query rows that sit at
+    positions ``[offset, offset + Sq)`` of the keys: the scores over the
+    whole of k, masked past each row's position (the work GSPMD does for
+    each rank's rows of a split sequence).  :func:`flash_attention` on k/v
+    cut to ``[0, offset + Sq)`` is the same function."""
+    check_qkv(q, k, v)
+    if not 0 <= offset <= k.shape[2] - q.shape[2]:
+        raise ValueError(f"rows [{offset}, {offset + q.shape[2]}) outside "
+                         f"{k.shape[2]} keys")
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        v = v.repeat_interleave(rep, dim=1)
+    probs = torch.softmax(_scores(q, k, True, offset), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def _scores(q, k, causal: bool, offset=None) -> torch.Tensor:
+    """The scaled f32 scores (B,Hq,Sq,Sk), masked to NEG_INF when causal;
+    the queries sit at ``[offset, offset + Sq)`` of the keys, at their end
+    unless ``offset`` is given."""
     _, hq, sq, d = q.shape
     rep = hq // k.shape[1]
     if rep > 1:
@@ -152,7 +171,8 @@ def _scores(q, k, causal: bool) -> torch.Tensor:
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     if causal:
         sk = k.shape[2]
-        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        qpos = torch.arange(sq, device=q.device)[:, None] + (
+            sk - sq if offset is None else offset)
         mask = qpos >= torch.arange(sk, device=q.device)[None, :]
         scores = torch.where(mask, scores, NEG_INF)
     return scores

@@ -24,7 +24,14 @@ axes, attention heads on ``model`` where the plan shards both query and
 KV heads there, sequence and head dims whole; DTensor inserts the
 all-gathers GSPMD would), then runs the same wrapper on this rank's local
 shards through ``local_map``: the kernel on the card (with no plain
-fallback), the plain version on the CPU.
+fallback), the plain version on the CPU.  Where the plan keeps the query
+heads off the mesh, attention is split as ``repro``'s plan splits it:
+each rank's query rows of a split sequence against the whole K/V
+(:func:`flash_attention_rows`), and in decode each rank's slice of a
+cache split along its sequence, the slices merged by their log-sum-exp
+(:func:`decode_attention_slice`, :func:`merge_slices`); where it splits
+the query heads but not the KV heads, each rank's query heads against
+all the KV heads (:func:`flash_attention_heads`).
 """
 
 from __future__ import annotations
@@ -129,8 +136,20 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D); see the kernel module."""
+    """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D); see the kernel module.
+
+    Where the query heads are kept whole and the sequence is split, causal
+    self-attention is sequence-parallel (:func:`_flash_rows`); where the KV
+    heads alone are whole, each rank attends with its query heads
+    (:func:`_flash_heads`)."""
     if _is_dtensor(q):
+        from repro_torch.parallel.context import attention_placement, split_dims
+
+        heads = attention_placement(q.shape[1]).heads
+        if heads == "rows" and causal and split_dims(q, 2) and q.shape[2] == k.shape[2]:
+            return _flash_rows(q, k, v)
+        if heads == "kv_rows":
+            return _flash_heads(q, k, v, causal)
         qa, kva = _attn_axes()
         return _on_shards(lambda q, k, v: flash_attention(q, k, v, causal=causal),
                           (q, k, v), (qa, kva, kva), qa)
@@ -141,15 +160,158 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
+def flash_attention_rows(q, k, v, offset: int) -> torch.Tensor:
+    """Causal attention of query rows q (B,Hq,Sq,D) that sit at positions
+    ``[offset, offset + Sq)`` of k/v (B,Hkv,Sk,D): a rank's rows of a split
+    sequence against the whole keys.  On the card the flash kernel (and its
+    backward) runs over k/v cut to ``[0, offset + Sq)``, where the queries
+    sit at the end of the keys; the plain version scores the whole of k,
+    masked, as GSPMD does."""
+    if q.device.type == "cpu" or _plain_depth:
+        return _flash.flash_attention_rows_plain(q, k, v, offset)
+    end = offset + q.shape[2]
+    return flash_attention(q, k[:, :, :end], v[:, :, :end], causal=True)
+
+
+def _flash_rows(q, k, v):
+    """Sequence-parallel causal self-attention of DTensors: each rank scores
+    its own query rows (the sequence split as the plan splits it), all heads,
+    against the whole K/V (gathered), from its first row's position, the
+    rank's offset along the sequence.  K/V's gradients are partial sums over
+    the mesh dims that split the rows."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan, local_offset
+
+    plan = current_plan()
+    mesh = q.device_mesh
+    rows = list(plan.placements(mesh, "batch", None, "seq", None))
+    whole = list(plan.placements(mesh, "batch", None, None, None))
+    kv_grad = [Partial() if r.is_shard() and r.dim == 2 else w
+               for r, w in zip(rows, whole)]
+    offset = local_offset(q, 2, rows)
+    return local_map(flash_attention_rows, out_placements=rows,
+                     in_placements=(rows, whole, whole, None),
+                     in_grad_placements=(rows, kv_grad, kv_grad, None),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v, offset)
+
+
+def flash_attention_heads(q, k, v, first: int, n_heads: int, *,
+                          causal: bool = True) -> torch.Tensor:
+    """Attention of a rank's query heads ``[first, first + Hq)`` of
+    ``n_heads`` (q (B,Hq,Sq,D)) over all the KV heads k/v (B,Hkv,Sk,D):
+    each query head reads the KV head it groups to, a slice of k/v where the
+    rank's heads group evenly, else the KV heads picked one a query head."""
+    group = n_heads // k.shape[1]
+    kv = [(first + j) // group for j in range(q.shape[1])]
+    lo, n_kv = kv[0], kv[-1] + 1 - kv[0]
+    per = q.shape[1] // n_kv
+    if per * n_kv == q.shape[1] and all(h - lo == j // per for j, h in enumerate(kv)):
+        k, v = k[:, lo:lo + n_kv], v[:, lo:lo + n_kv]
+    else:
+        index = torch.tensor(kv, device=k.device)
+        k, v = k.index_select(1, index), v.index_select(1, index)
+    return flash_attention(q, k, v, causal=causal)
+
+
+def _flash_heads(q, k, v, causal: bool):
+    """Attention of DTensors where the plan splits the query heads but not
+    the KV heads (they do not divide the mesh axis): each rank attends with
+    its own query heads over all the KV heads (gathered), the sequence
+    whole; K/V's gradients are partial sums over the mesh dims that split
+    the heads."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan, local_offset
+
+    plan = current_plan()
+    mesh = q.device_mesh
+    heads = list(plan.placements(mesh, "batch", "heads", None, None))
+    whole = list(plan.placements(mesh, "batch", None, None, None))
+    kv_grad = [Partial() if h.is_shard() and h.dim == 1 else w
+               for h, w in zip(heads, whole)]
+    first, n_heads = local_offset(q, 1, heads), q.shape[1]
+    return local_map(
+        lambda q, k, v: flash_attention_heads(q, k, v, first, n_heads, causal=causal),
+        out_placements=heads, in_placements=(heads, whole, whole),
+        in_grad_placements=(heads, kv_grad, kv_grad),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def decode_attention(q, k, v, kv_len: int) -> torch.Tensor:
-    """q (B,Hq,1,D) over keys [0, kv_len) of k/v (B,Hkv,S,D) -> (B,Hq,1,D)."""
+    """q (B,Hq,1,D) over keys [0, kv_len) of k/v (B,Hkv,S,D) -> (B,Hq,1,D).
+
+    A cache split along its sequence is attended slice by slice and the
+    slices merged (:func:`_decode_merged`)."""
     if _is_dtensor(q):
+        from repro_torch.parallel.context import split_dims
+
+        if split_dims(k, 2):
+            return _decode_merged(q, k, v, kv_len)
         qa, kva = _attn_axes()
         return _on_shards(lambda q, k, v: decode_attention(q, k, v, kv_len),
                           (q, k, v), (qa, kva, kva), qa)
     if _plain_depth:
         return _decode.decode_attention_plain(q, k, v, kv_len)
     return _decode.decode_attention(q, k, v, kv_len)
+
+
+def decode_attention_slice(q, k, v, kv_len: int) -> tuple:
+    """(out, lse) of q over keys ``[0, kv_len)`` of one slice of a cache,
+    ``kv_len`` clamped to the slice: a slice wholly past the filled keys
+    gives out 0 and lse -inf, and launches nothing."""
+    kv_len = min(max(int(kv_len), 0), k.shape[2])
+    if kv_len == 0:
+        return (torch.zeros_like(q),
+                torch.full(q.shape[:3], float("-inf"), dtype=torch.float32,
+                           device=q.device))
+    if _plain_depth:
+        return _decode.decode_attention_plain(q, k, v, kv_len, return_lse=True)
+    return _decode.decode_attention(q, k, v, kv_len, return_lse=True)
+
+
+def merge_slices(out, lse, groups) -> torch.Tensor:
+    """The attention over a whole cache from each rank's ``(out, lse)`` over
+    its slice (``out`` (B,H,1,D), ``lse`` (B,H,1)): weights
+    ``exp(lse - max lse)``, by two all-reduces over ``groups`` (the process
+    groups of the mesh dims that split the cache), the max of lse and the
+    sum of the weighted outputs beside the weights."""
+    import torch.distributed._functional_collectives as funcol
+
+    m = lse
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    w = torch.exp(lse - m)[..., None]
+    acc = torch.cat([out.float() * w, w], dim=-1)
+    for g in groups:
+        acc = funcol.all_reduce(acc, "sum", g)
+    return (acc[..., :-1] / acc[..., -1:]).to(out.dtype)
+
+
+def _decode_merged(q, k, v, kv_len: int):
+    """Decode attention over a cache k/v split along its sequence: each rank
+    attends over its own slice, keys before ``kv_len`` (its slice's offset
+    off), with all query heads, and the slices merge by their log-sum-exp
+    (:func:`merge_slices`) in place of gathering the cache."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan, local_offset, split_dims
+
+    plan = current_plan()
+    mesh = k.device_mesh
+    qp = list(plan.placements(mesh, "batch", None, None, None))
+    kvp = list(k.placements)
+    groups = [mesh.get_group(d) for d in split_dims(k, 2)]
+    start = local_offset(k, 2)
+
+    def local(q, k, v):
+        out, lse = decode_attention_slice(q, k, v, kv_len - start)
+        return merge_slices(out, lse, groups)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kvp, kvp),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 class SSDScan(torch.autograd.Function):

@@ -32,7 +32,19 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import replicate, rows_product, shard_act, zero_pad
+from repro_torch.parallel.context import (
+    attention_placement,
+    current_plan,
+    local_offset,
+    replicate,
+    rows_einsum,
+    rows_product,
+    shard_act,
+    split_dims,
+    write_row,
+    write_rows,
+    zero_pad,
+)
 
 #: the residual stream's logical axes, (batch, seq, d_model): where the
 #: reference constrains a layer's output, and where a block's output is
@@ -59,14 +71,33 @@ def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def norm(cfg, p, x):
+def norm(cfg, p, x, axes=("batch", None, "act_embed")):
     """The normalised ``x``, its sequence whole: a norm opens each block (and
     the LM head), and under sequence parallelism it is where the sequence is
     gathered for the block's products (Megatron-SP's all-gather, which GSPMD
     places at the product: a DTensor cannot fold a split sequence dim into
-    the batch, as ``einsum`` and ``matmul`` do)."""
+    the batch, as ``einsum`` and ``matmul`` do).  ``axes`` places it
+    otherwise."""
     y = nonparam_layernorm(x) if cfg.norm == "nonparam_ln" else rmsnorm(x, p)
-    return shard_act(y, ("batch", None, "act_embed"))
+    return shard_act(y, axes)
+
+
+def heads_whole(cfg) -> bool:
+    """Whether attention (or the mLSTM) keeps ``cfg``'s heads whole on the
+    context's mesh (:func:`~repro_torch.parallel.context.attention_placement`):
+    its projections then run on each rank's own rows (:func:`_qkv`), and
+    attention splits the sequence or, in decode, the cache's sequence."""
+    return attention_placement(cfg.n_heads).heads == "rows"
+
+
+def rows_norm(cfg, p, x):
+    """The norm that opens a GQA attention block or an mLSTM block:
+    :func:`norm`, but with the heads kept whole the rows stay split as the
+    residual stream splits them (the block's projections take each rank's
+    own rows, so nothing is gathered)."""
+    if cfg.mla is None and heads_whole(cfg):
+        return norm(cfg, p, x, ACT)
+    return norm(cfg, p, x)
 
 
 def norm_def(cfg) -> Optional[ParamDef]:
@@ -157,9 +188,21 @@ def attn_cache_shape(cfg, batch: int, s_max: int) -> dict:
 
 
 def _qkv(cfg, p, x, cos, sin) -> tuple:
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
+    heads = attention_placement(cfg.n_heads).heads
+    if heads == "rows":
+        # each rank's own rows (its part of the sequence, or of the batch in
+        # decode) by the whole weights: the (heads x head_dim) outputs are
+        # never split, as the heads do not divide the model axis
+        q, k, v = rows_einsum("bsd,dhk->bhsk", shard_act(x, ACT),
+                              p["wq"], p["wk"], p["wv"])
+    else:
+        q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
+        if heads == "kv_rows":
+            # query heads split, KV heads whole (they do not divide the axis)
+            k, v = rows_einsum("bsd,dhk->bhsk", shard_act(x, ACT), p["wk"], p["wv"])
+        else:
+            k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
+            v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -167,14 +210,23 @@ def _qkv(cfg, p, x, cos, sin) -> tuple:
     return q, apply_rope(k, cos, sin), v
 
 
-def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
+def _out_proj(cfg, p, out: torch.Tensor) -> torch.Tensor:
+    if heads_whole(cfg):
+        return rows_einsum("bhsk,hkd->bsd", out, p["wo"])[0]
     return torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+
+
+def _split_cache(cfg, t) -> bool:
+    """Whether a cache entry is a DTensor whose sequence the plan splits
+    (``kv_seq`` over more than one rank): decode then attends slice by
+    slice."""
+    return hasattr(t, "placements") and attention_placement(cfg.n_heads).cache_slices
 
 
 def attn_train(cfg, p, x, cos, sin) -> torch.Tensor:
     """Causal self-attention over the whole sequence (teacher forcing, training)."""
     q, k, v = _qkv(cfg, p, x, cos, sin)
-    return _out_proj(p, ops.flash_attention(q, k, v, causal=True))
+    return _out_proj(cfg, p, ops.flash_attention(q, k, v, causal=True))
 
 
 def attn_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
@@ -183,7 +235,7 @@ def attn_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
     out = ops.flash_attention(q, k, v, causal=True)
     pad = (0, 0, 0, s_max - sq)
     cache = {"k": zero_pad(k, pad), "v": zero_pad(v, pad)}
-    return _out_proj(p, out), cache
+    return _out_proj(cfg, p, out), cache
 
 
 def attn_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
@@ -194,12 +246,21 @@ def attn_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
     """
     q, k_new, v_new = _qkv(cfg, p, x, cos, sin)
     k, v = cache["k"], cache["v"]
-    k[:, :, pos : pos + 1] = k_new.to(k.dtype)
-    v[:, :, pos : pos + 1] = v_new.to(v.dtype)
+    if _split_cache(cfg, k):
+        # the cache placed as the plan splits it, each rank writing and
+        # attending over its own slice (ops.decode_attention merges them)
+        axes = attn_cache_shape(cfg, 1, 1)["k"][1]
+        k, v = shard_act(k, axes), shard_act(v, axes)
+        cache.update(k=k, v=v)
+        write_rows(k, k_new, pos, 2)
+        write_rows(v, v_new, pos, 2)
+    else:
+        k[:, :, pos : pos + 1] = k_new.to(k.dtype)
+        v[:, :, pos : pos + 1] = v_new.to(v.dtype)
     # a cache kept in another dtype (the reference's f32 caches of the
     # hybrid family) is read in its own, as the reference promotes q
     out = ops.decode_attention(q.to(k.dtype), k, v, pos + 1).to(q.dtype)
-    return _out_proj(p, out), cache
+    return _out_proj(cfg, p, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +307,7 @@ def _mla_latents(cfg, p, x, cos, sin) -> tuple:
     return c_kv, k_rope
 
 
-def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask) -> torch.Tensor:
+def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask, groups=()) -> torch.Tensor:
     """Absorbed-matrix MLA attention over the latent cache.
 
     q_nope (B,H,Sq,nope), q_rope (B,H,Sq,rope); c_kv (B,Sk,kv_lora),
@@ -254,6 +315,12 @@ def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask) -> torch.Tensor:
     scores are f32 products of the operands (the reference's
     ``preferred_element_type``); the probabilities are rounded to the
     cache's dtype before ``probs · c_kv``, as the reference rounds them.
+
+    ``groups``: where each rank holds a slice of the cache, the process
+    groups of the mesh dims that split it; the softmax's max and sum and
+    the context ``probs · c_kv`` are then all-reduced over them (each a
+    (B,H,Sq)- or (B,H,Sq,kv_lora)-sized tensor), so every rank ends with
+    the attention over the whole cache.
     """
     m = cfg.mla
     scale = 1.0 / math.sqrt(m.nope_dim + m.rope_dim)
@@ -264,8 +331,26 @@ def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask) -> torch.Tensor:
     scores = scores * scale
     if mask is not None:
         scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
-    ctx = torch.einsum("bhst,btr->bhsr", probs, c_kv)
+    if not groups:
+        # one fused pass over the f32 scores; the merged steps below read
+        # them five times, which MLA's card-bound prefill pays (minicpm3-4b
+        # on an H100: 521 ms of card work a prefill against 418 ms)
+        probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+        ctx = torch.einsum("bhst,btr->bhsr", probs, c_kv)
+    else:
+        import torch.distributed._functional_collectives as funcol
+
+        top = scores.amax(dim=-1, keepdim=True)
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        e = torch.exp(scores - top)
+        total = e.sum(dim=-1, keepdim=True)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        probs = (e / total).to(c_kv.dtype)
+        ctx = torch.einsum("bhst,btr->bhsr", probs, c_kv)
+        for g in groups:
+            ctx = funcol.all_reduce(ctx, "sum", g)
     out = torch.einsum("bhsr,rhv->bhsv", ctx, p["wuv"])
     return torch.einsum("bhsv,hvd->bsd", out, p["wo"])
 
@@ -297,16 +382,62 @@ def mla_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
 
     The reference masks the cache to keys ``<= pos``; attending over the
     first ``pos + 1`` positions is the same function (a masked key's
-    probability is exactly zero).
+    probability is exactly zero).  A cache split along its sequence is
+    attended slice by slice (:func:`_mla_decode_split`).
     """
+    if _split_cache(cfg, cache["c_kv"]):
+        return _mla_decode_split(cfg, p, x, cos, sin, cache, pos)
+    return _mla_decode_local(cfg, p, x, cos, sin, cache["c_kv"], cache["k_rope"], pos), cache
+
+
+def _mla_decode_local(cfg, p, x, cos, sin, c_kv, k_rope, pos: int, start: int = 0,
+                      groups=()) -> torch.Tensor:
+    """:func:`mla_decode`'s attention on plain tensors: the new latents
+    written at ``pos`` of the cache c_kv, k_rope, or of a rank's slice of it
+    that starts at ``start``; a slice (``groups``, the process groups that
+    split the cache) is written with the same select on every rank and its
+    keys masked past ``pos``, as the reference masks the whole cache, and
+    the slices merge in :func:`mla_attend`."""
     q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
     c_new, kr_new = _mla_latents(cfg, p, x, cos, sin)
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    if groups:
+        write_row(c_kv, c_new, pos - start, 1)
+        write_row(k_rope, kr_new, pos - start, 1)
+        mask = (start + torch.arange(c_kv.shape[1], device=x.device) <= pos)[None]
+        return mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask, groups)
     c_kv[:, pos : pos + 1] = c_new.to(c_kv.dtype)
     k_rope[:, pos : pos + 1] = kr_new.to(k_rope.dtype)
-    out = mla_attend(
-        cfg, p, q_nope, q_rope, c_kv[:, : pos + 1], k_rope[:, : pos + 1], None
-    )
+    return mla_attend(cfg, p, q_nope, q_rope, c_kv[:, : pos + 1], k_rope[:, : pos + 1], None)
+
+
+def _mla_decode_split(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
+    """:func:`mla_decode` over a latent cache split along its sequence
+    (:func:`_mla_decode_local` on each rank's own batch rows, its cache
+    slice, the heads whole and the weights gathered), the slices merged in
+    place of gathering the cache."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    axes = mla_cache_shape(cfg, 1, 1)
+    c_kv = shard_act(cache["c_kv"], axes["c_kv"][1])
+    k_rope = shard_act(cache["k_rope"], axes["k_rope"][1])
+    cache.update(c_kv=c_kv, k_rope=k_rope)
+    mesh = c_kv.device_mesh
+    rows = list(current_plan().placements(mesh, "batch", None, None))
+    whole = [Replicate()] * mesh.ndim
+    groups = [mesh.get_group(d) for d in split_dims(c_kv, 1)]
+    start = local_offset(c_kv, 1)
+    names = sorted(mla_defs(cfg))
+
+    def local(x, cos, sin, c_kv, k_rope, *ws):
+        return _mla_decode_local(cfg, dict(zip(names, ws)), x, cos, sin, c_kv, k_rope,
+                                 pos, start, groups)
+
+    cp = list(c_kv.placements)
+    out = local_map(local, out_placements=rows,
+                    in_placements=(rows, whole, whole, cp, cp, *(whole for _ in names)),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        x, replicate(cos), replicate(sin), c_kv, k_rope, *(p[n] for n in names))
     return out, cache
 
 

@@ -214,17 +214,23 @@ def _ffn_half(cfg, kind: str, p, x) -> tuple:
         return x + shard_act(h, B.ACT), 0.0
 
 
+def _recurrent_norm(cfg, kind: str, p, x):
+    """The norm that opens a recurrent block: the mLSTM's takes each rank's
+    own rows (:func:`~repro_torch.models.blocks.rows_norm`)."""
+    return (B.rows_norm if kind == "mlstm" else B.norm)(cfg, p.get("norm1"), x)
+
+
 def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
     """Returns (x, the layer's aux loss) for one layer."""
     if kind in _RECURRENT:
         train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
-            h = train(cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x))
+            h = train(cfg, p["ssm"], _recurrent_norm(cfg, kind, p, x))
             x = x + shard_act(h, B.ACT)
         return shard_act(x, B.ACT), 0.0
     train, _, _ = _attention(cfg)
     with comm_region("attn"):
-        h = B.norm(cfg, p.get("norm1"), x)
+        h = B.rows_norm(cfg, p.get("norm1"), x)
         x = x + shard_act(train(cfg, p["attn"], h, ctx.cos, ctx.sin), B.ACT)
     x, aux = _ffn_half(cfg, kind, p, x)
     return shard_act(x, B.ACT), aux
@@ -236,12 +242,12 @@ def layer_prefill(cfg, kind: str, p, x, ctx: Ctx) -> tuple:
         train, _ = _RECURRENT[kind]
         with comm_region("ssm"):
             h, cache = train(
-                cfg, p["ssm"], B.norm(cfg, p.get("norm1"), x), return_state=True
+                cfg, p["ssm"], _recurrent_norm(cfg, kind, p, x), return_state=True
             )
         return shard_act(x + shard_act(h, B.ACT), B.ACT), cache
     _, prefill, _ = _attention(cfg)
     with comm_region("attn"):
-        h = B.norm(cfg, p.get("norm1"), x)
+        h = B.rows_norm(cfg, p.get("norm1"), x)
         h, cache = prefill(cfg, p["attn"], h, ctx.cos, ctx.sin, ctx.s_max)
         x = x + shard_act(h, B.ACT)
     x = _ffn_half(cfg, kind, p, x)[0]
@@ -256,7 +262,7 @@ def layer_decode(cfg, kind: str, p, x, ctx: Ctx, cache: dict) -> tuple:
             return x + shard_act(h, B.ACT), cache
     _, _, decode = _attention(cfg)
     with comm_region("attn"):
-        h = B.norm(cfg, p.get("norm1"), x)
+        h = B.rows_norm(cfg, p.get("norm1"), x)
         h, cache = decode(cfg, p["attn"], h, ctx.cos, ctx.sin, cache, ctx.pos)
         x = x + shard_act(h, B.ACT)
     return _ffn_half(cfg, kind, p, x)[0], cache

@@ -33,10 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.blocks import rmsnorm
+from repro_torch.models.blocks import heads_whole, rmsnorm
 from repro_torch.models.mamba import _causal_conv  # the same depthwise conv
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import elementwise
+from repro_torch.parallel.context import elementwise, rows_einsum, shard_act
 
 
 def _dims(cfg) -> tuple:
@@ -74,15 +74,32 @@ def mlstm_state_shape(cfg, batch: int) -> dict:
     }
 
 
+def _einsum(eq: str, x, *ws) -> tuple:
+    """``torch.einsum(eq, x, w)`` for each ``w`` (:func:`rows_einsum`'s
+    signature, for the products as the plan places them)."""
+    return tuple(torch.einsum(eq, x, w) for w in ws)
+
+
 def _qkv_gates(cfg, p, xm, conv_state=None) -> tuple:
     m, di, H, Dh = _dims(cfg)
-    xc, new_conv = _causal_conv(xm, p["conv_w"], p["conv_b"], conv_state)
+    whole = heads_whole(cfg)
+    if whole:
+        # heads that do not divide the model axis: the causal conv takes the
+        # sequence whole; then the inner dim whole, so its reshape into heads
+        # sees whole heads, and each rank's own rows (of the sequence, as the
+        # plan splits it) by the whole weights
+        xc, new_conv = _causal_conv(shard_act(xm, ("batch", None, None)), p["conv_w"],
+                                    p["conv_b"], conv_state)
+        xc, xm = shard_act(xc, ("batch", "seq", None)), shard_act(xm, ("batch", "seq", None))
+    else:
+        xc, new_conv = _causal_conv(xm, p["conv_w"], p["conv_b"], conv_state)
     xch = xc.reshape(*xc.shape[:2], H, Dh)
     xmh = xm.reshape(*xm.shape[:2], H, Dh)
-    q = torch.einsum("bshd,hde->bshe", xch, p["wq"])
-    k = torch.einsum("bshd,hde->bshe", xch, p["wk"]) / math.sqrt(Dh)
-    v = torch.einsum("bshd,hde->bshe", xmh, p["wv"])
-    gates = torch.einsum("bsk,kg->bsg", xc.float(), p["w_gates"]) + p["gate_bias"][None, None]
+    product = rows_einsum if whole else _einsum
+    q, k = product("bshd,hde->bshe", xch, p["wq"], p["wk"])
+    k = k / math.sqrt(Dh)
+    (v,) = product("bshd,hde->bshe", xmh, p["wv"])
+    gates = product("bsk,kg->bsg", xc.float(), p["w_gates"])[0] + p["gate_bias"][None, None]
     lf = elementwise(F.logsigmoid, gates[..., :H])  # log forget gate
     li = gates[..., H:]  # log input gate (exp)
     return q, k, v, lf, li, new_conv
@@ -94,7 +111,13 @@ def mlstm_train(cfg, p, x, return_state: bool = False, state=None):
     ``state`` (a decode state) continues the recurrence from it.
     """
     m, di, H, Dh = _dims(cfg)
-    up = torch.einsum("bsd,dk->bsk", x, p["up"])
+    if heads_whole(cfg):
+        # each rank's own rows by the whole weight, so the inner dim splits
+        # into xm and z, and later into heads, whole
+        up = rows_einsum("bsd,dk->bsk", shard_act(x, ("batch", "seq", "act_embed")),
+                         p["up"])[0]
+    else:
+        up = torch.einsum("bsd,dk->bsk", x, p["up"])
     xm, z = up[..., :di], up[..., di:]
     conv_init = None if state is None else state["conv"]
     q, k, v, lf, li, new_conv = _qkv_gates(cfg, p, xm, conv_init)
@@ -103,11 +126,54 @@ def mlstm_train(cfg, p, x, return_state: bool = False, state=None):
         inner = tuple(state[key].float() for key in ("C", "n", "m"))
     h, (C, n, mf) = ops.mlstm_scan(q, k, v, lf, li, inner, block_q=m.chunk)
     h = h.to(x.dtype).reshape(*x.shape[:2], di)
-    h = rmsnorm(h, p["head_norm"])
-    y = torch.einsum("bsk,kd->bsd", h * F.silu(z), p["down"])
+    if heads_whole(cfg):
+        # back to each rank's own rows, the inner dim whole, for the down
+        # projection (as GSPMD multiplies them)
+        h, z = shard_act(h, ("batch", "seq", None)), shard_act(z, ("batch", "seq", None))
+        h = rmsnorm(h, shard_act(p["head_norm"], (None,)))
+        y = rows_einsum("bsk,kd->bsd", h * F.silu(z), p["down"])[0]
+    else:
+        h = rmsnorm(h, p["head_norm"])
+        y = torch.einsum("bsk,kd->bsd", h * F.silu(z), p["down"])
     if return_state:
         return y, {"C": C, "n": n, "m": mf, "conv": new_conv}
     return y
+
+
+def _step(qh, kh, vh, lf, li, C, n, mp):
+    """One token's recurrence on plain tensors: q/k/v (B,H,Dh), the log
+    gates (B,H); C, n and m updated in place; h (B,H,Dh) f32."""
+    B, H, Dh = qh.shape
+    mn = torch.maximum(lf + mp, li)
+    a = torch.exp(lf + mp - mn)  # (B,H)
+    b = torch.exp(li - mn)
+    # C <- a C + b k vᵀ, in place: (B·H, Dh, Dh) += (b k) (Dh, 1) @ v (1, Dh)
+    C.mul_(a[..., None, None])
+    C.view(B * H, Dh, Dh).baddbmm_(
+        (b[..., None] * kh).reshape(B * H, Dh, 1), vh.reshape(B * H, 1, Dh)
+    )
+    n.mul_(a[..., None]).add_(b[..., None] * kh)
+    mp.copy_(mn)
+    num = torch.bmm(qh.reshape(B * H, 1, Dh), C.view(B * H, Dh, Dh)).reshape(B, H, Dh)
+    den = torch.maximum((qh * n).sum(dim=-1).abs(), torch.exp(-mn))
+    return num / den[..., None]
+
+
+def _recur(qh, kh, vh, lf, li, C, n, mp):
+    """:func:`_step`; DTensors take it on their local shards (each row's
+    recurrence is its own; DTensor has no rule for the in-place
+    ``baddbmm_``): the state as it lies, so it is updated in place, and the
+    token's q, k, v and gates placed as the state's (batch, heads); h is
+    placed so too."""
+    args = (qh, kh, vh, lf, li, C, n, mp)
+    if not hasattr(C, "placements"):
+        return _step(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    state = list(mp.placements)
+    placed = (state,) * 5 + (list(C.placements), list(n.placements), state)
+    return local_map(_step, out_placements=state, in_placements=placed,
+                     device_mesh=C.device_mesh, redistribute_inputs=True)(*args)
 
 
 def mlstm_decode(cfg, p, x, state: dict) -> tuple:
@@ -125,6 +191,8 @@ def mlstm_decode(cfg, p, x, state: dict) -> tuple:
     out = sum(xp[:, i : i + 1] * w[i][None, None] for i in range(w.shape[0]))
     xc = F.silu(out + p["conv_b"][None, None])
     conv.copy_(xp[:, 1:])
+    if heads_whole(cfg):  # the inner dim whole before it splits into heads
+        xc, xm = shard_act(xc, ("batch", None, None)), shard_act(xm, ("batch", None, None))
 
     xch = xc.reshape(B, H, Dh).transpose(0, 1)  # (H, B, Dh)
     xmh = xm.reshape(B, H, Dh).transpose(0, 1)
@@ -135,20 +203,7 @@ def mlstm_decode(cfg, p, x, state: dict) -> tuple:
     lf = elementwise(F.logsigmoid, gates[..., :H])
     li = gates[..., H:]
 
-    mp = state["m"]
-    mn = torch.maximum(lf + mp, li)
-    a = torch.exp(lf + mp - mn)  # (B,H)
-    b = torch.exp(li - mn)
-    C, n = state["C"], state["n"]
-    # C <- a C + b k vᵀ, in place: (B·H, Dh, Dh) += (b k) (Dh, 1) @ v (1, Dh)
-    C.mul_(a[..., None, None])
-    C.view(B * H, Dh, Dh).baddbmm_(
-        (b[..., None] * kh).reshape(B * H, Dh, 1), vh.reshape(B * H, 1, Dh)
-    )
-    n.mul_(a[..., None]).add_(b[..., None] * kh)
-    mp.copy_(mn)
-    num = torch.bmm(qh.reshape(B * H, 1, Dh), C.view(B * H, Dh, Dh)).reshape(B, H, Dh)
-    den = torch.maximum((qh * n).sum(dim=-1).abs(), torch.exp(-mn))
-    h = (num / den[..., None]).to(x.dtype)
+    h = _recur(qh, kh, vh, lf, li, state["C"], state["n"], state["m"])
+    h = h.to(x.dtype)
     h = rmsnorm(h.reshape(B, 1, di), p["head_norm"])
     return (h * F.silu(z)) @ p["down"], state

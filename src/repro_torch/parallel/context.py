@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 from types import SimpleNamespace
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 #: process-wide, not thread-local (the reference's is): on the card the
 #: autograd engine runs the backward, and so the recompute of a
@@ -67,25 +67,109 @@ def _seq_split(x) -> bool:
 
 def rows_product(x, w):
     """``x @ w`` for x (batch, seq, K); where x is a DTensor split along its
-    sequence, each rank multiplies its own rows by the whole weight (the
-    weight gathered), as GSPMD does for rows split along the sequence, and
-    the product keeps x's placements.  The weight's gradient is a partial
-    sum over every mesh dim that splits the rows, reduced as the gather's
-    backward returns it to the weight's placements.  A DTensor cannot fold
-    a split sequence dim into the batch, as ``matmul`` does."""
+    sequence, each rank multiplies its own rows by the whole weight
+    (:func:`rows_einsum`), as GSPMD does for rows split along the sequence:
+    a DTensor cannot fold a split sequence dim into the batch, as
+    ``matmul`` does."""
     if not _seq_split(x):
         return x @ w
+    return rows_einsum("bsk,kd->bsd", x, w)[0]
+
+
+def rows_einsum(eq: str, x, *ws) -> tuple:
+    """``torch.einsum(eq, x, w)`` for each ``w``; where ``x`` is a DTensor,
+    each rank multiplies its own rows of ``x`` (its shards, on any dim the
+    output keeps) by the whole weights (gathered), as GSPMD multiplies rows
+    it splits, and each product keeps x's placements on the dims it keeps.
+    A weight's gradient is a partial sum over every mesh dim that splits the
+    rows, reduced as the gather's backward returns it to the weight's
+    placements.  So a product that makes (heads x head_dim) never splits
+    that flattened dim, which DTensor could not unflatten into heads that do
+    not divide the mesh axis; nor does it fold a split sequence into the
+    batch, which a DTensor cannot."""
     import torch
-    from torch.distributed.tensor import Partial, Replicate
+
+    if not _is_dtensor(x):
+        return tuple(torch.einsum(eq, x, w) for w in ws)
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
+    lhs, out = eq.replace(" ", "").split("->")
+    xs = lhs.split(",")[0]
     mesh = x.device_mesh
     rows = list(x.placements)
+    if any(p.is_partial() or (p.is_shard() and xs[p.dim] not in out) for p in rows):
+        raise ValueError(f"{eq}: x {x.placements} is split on a contracted dim")
+    prod = [Shard(out.index(xs[p.dim])) if p.is_shard() else Replicate() for p in rows]
+    whole = [Replicate()] * mesh.ndim
     w_grad = [Partial() if p.is_shard() else Replicate() for p in rows]
-    return local_map(torch.matmul, out_placements=rows,
-                     in_placements=(rows, [Replicate()] * mesh.ndim),
-                     in_grad_placements=(rows, w_grad),
-                     device_mesh=mesh, redistribute_inputs=True)(x, w)
+    return local_map(lambda x, *ws: tuple(torch.einsum(eq, x, w) for w in ws),
+                     out_placements=tuple(prod for _ in ws),
+                     in_placements=(rows, *(whole for _ in ws)),
+                     in_grad_placements=(rows, *(w_grad for _ in ws)),
+                     device_mesh=mesh, redistribute_inputs=True)(x, *ws)
+
+
+def local_offset(x, dim: int, placements=None) -> int:
+    """The global index of this rank's first element of DTensor ``x`` along
+    ``dim`` (0 where ``dim`` is whole), as ``x`` is placed or, given
+    ``placements``, would be: the row offset of a split sequence, from this
+    rank's coordinates on the mesh."""
+    mesh = x.device_mesh
+    coordinate = mesh.get_coordinate()
+    size, offset = x.shape[dim], 0
+    # mesh dims split a tensor dim in their order, each into torch.chunk's
+    # pieces (ceil-sized, the last ones short or empty), as DTensor does
+    for i, p in enumerate(x.placements if placements is None else placements):
+        if p.is_shard() and p.dim == dim:
+            piece = -(-size // mesh.size(i))
+            start = min(coordinate[i] * piece, size)
+            offset += start
+            size = min(piece, size - start)
+    return offset
+
+
+def split_dims(x, dim: int) -> list:
+    """The mesh dims that split DTensor ``x`` along ``dim``."""
+    return [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == dim]
+
+
+def write_row(local, new, i: int, dim: int) -> None:
+    """Row ``i`` along ``dim`` of a rank's slice ``local`` set to ``new``
+    (of size 1 there), in place, where ``0 <= i < local.shape[dim]``; every
+    rank runs the same ops (a select into its slice's nearest row), as
+    GSPMD's update of a split dim does, so each rank's program is the
+    same."""
+    import torch
+
+    n = local.shape[dim]
+    if n == 0:
+        return
+    row = local.narrow(dim, min(max(i, 0), n - 1), 1)
+    mine = torch.full((), 0 <= i < n, dtype=torch.bool, device=local.device)
+    row.copy_(torch.where(mine, new.to(local.dtype), row))
+
+
+def write_rows(x, new, pos: int, dim: int) -> None:
+    """DTensor ``x`` at index ``pos`` along ``dim`` set to ``new`` (of size
+    1 there), in place: a DTensor split along ``dim`` is written by the rank
+    whose slice holds ``pos`` (:func:`write_row`), with no collective."""
+    from torch.distributed.tensor import Replicate
+
+    new = new.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard() and p.dim == dim else p for p in x.placements])
+    write_row(x.to_local(), new.to_local(), pos - local_offset(x, dim), dim)
+
+
+def _ranks(names) -> int:
+    """The ranks of the context's mesh over mesh axes ``names`` (an axis
+    name, a tuple of them, or None); axes the mesh lacks count 1."""
+    names = (names,) if isinstance(names, str) else tuple(names or ())
+    dims = tuple(_CTX.mesh.mesh_dim_names or ())
+    n = 1
+    for a in names:
+        n *= _CTX.mesh.size(dims.index(a)) if a in dims else 1
+    return n
 
 
 def splits_evenly(size: int, logical: str) -> bool:
@@ -96,13 +180,49 @@ def splits_evenly(size: int, logical: str) -> bool:
     most)."""
     if _CTX.mesh is None or _CTX.plan is None:
         return True
-    axes = _CTX.plan.get(logical)
-    names = (axes,) if isinstance(axes, str) else tuple(axes or ())
-    dims = tuple(_CTX.mesh.mesh_dim_names or ())
-    n = 1
-    for a in names:
-        n *= _CTX.mesh.size(dims.index(a))
-    return size % n == 0
+    return size % _ranks(_CTX.plan.get(logical)) == 0
+
+
+class Placement(NamedTuple):
+    """How attention's heads and caches lie on the context's mesh
+    (:func:`attention_placement`).
+
+    ``heads``: ``"plan"`` where the plan's placements serve as they are (no
+    context; the query and KV heads split alike; or the heads off the mesh
+    with the sequence whole and a model axis they divide, as the
+    launcher's plan keeps them); ``"rows"`` where the query heads are kept
+    off a model axis of more than one rank that they do not divide, or off
+    a split sequence: the projections then run on each rank's own rows
+    with the heads whole (:func:`rows_einsum`), and attention takes the
+    rank's query rows (or, in decode, its cache slice); ``"kv_rows"``
+    where the query heads are split and the KV heads, which do not divide
+    the axis, are not: the K/V projections run on the rank's rows, and
+    each rank attends with its query heads over all the KV heads.
+
+    ``cache_slices``: the plan splits the decode caches' sequence over more
+    than one rank (``kv_seq``): each rank writes and attends over its own
+    slice, and the slices merge by their log-sum-exp."""
+
+    heads: str
+    cache_slices: bool
+
+
+def attention_placement(n_heads: int) -> Placement:
+    """The :class:`Placement` of attention with ``n_heads`` query heads,
+    from the context's plan and mesh.  GSPMD pads a split that does not
+    divide; DTensor splits the flattened (heads x head_dim) output of a
+    projection over the model axis and cannot unflatten it, so such heads
+    are kept whole, as ``repro``'s plan keeps them."""
+    plan = _CTX.plan
+    if _CTX.mesh is None or plan is None:
+        return Placement("plan", False)
+    slices = _ranks(plan.get("kv_seq")) > 1
+    if plan.get("heads") is None:
+        uneven = n_heads % _ranks("model") != 0
+        return Placement("rows" if uneven or _ranks(plan.get("seq")) > 1 else "plan",
+                         slices)
+    return Placement("kv_rows" if plan.get("kv_heads") != plan.get("heads") else "plan",
+                     slices)
 
 
 def replicate(x):
@@ -118,18 +238,21 @@ def replicate(x):
 
 
 def zero_pad(x, pad: tuple):
-    """``F.pad(x, pad)`` with zeros; a DTensor none of whose padded dims is
-    split is padded shard by shard, its placements kept (torch 2.11's
-    DTensor rule for ``pad`` fails on a 2-D mesh)."""
+    """``F.pad(x, pad)`` with zeros; a DTensor is padded shard by shard, its
+    placements kept, after it is gathered along any padded dim that is
+    split (torch 2.11's DTensor rule for ``pad`` fails on a 2-D mesh)."""
     import torch.nn.functional as F
 
     if not _is_dtensor(x):
         return F.pad(x, pad)
-    padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
-    if any(p.is_shard() and p.dim in padded for p in x.placements):
-        return F.pad(x, pad)
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
+    padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+    if any(p.is_shard() and p.dim in padded for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard() and p.dim in padded else p
+            for p in x.placements])
     placements = list(x.placements)
     return local_map(lambda t: F.pad(t, pad), out_placements=placements,
                      in_placements=(placements,), device_mesh=x.device_mesh)(x)

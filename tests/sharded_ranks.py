@@ -213,8 +213,29 @@ SEQ_PARALLEL = {"olmo-1b": {"n_heads": 4, "n_kv_heads": 4}, "zamba2-1.2b": {},
                 "granite-moe-3b-a800m": {}, "seamless-m4t-medium": {}}
 
 
-def seq_parallel_config(arch: str):
-    return registry.get(arch).reduced(**SEQ_PARALLEL[arch])
+#: the reduced archs whose heads do not divide the (2, 4) mesh's model axis,
+#: at 2 layers, held under ``repro``'s default plan with the published
+#: configs' FSDP rule (``embed`` over ``data``), which reduced configs fall
+#: below: the query heads (deepseek-coder-33b, xlstm-1.3b, minicpm3-4b), or
+#: only the KV heads (gemma-2b with 8 query and 2 KV heads); and xlstm-1.3b
+#: with 4 heads, which divide the axis (a key ``arch@variant`` names a
+#: second config of one arch)
+HEADS_WHOLE = {"deepseek-coder-33b": {"n_heads": 6, "n_kv_heads": 2, "n_layers": 2},
+               "xlstm-1.3b": {"n_heads": 2, "n_layers": 2},
+               "minicpm3-4b": {"n_heads": 6, "n_layers": 2},
+               "gemma-2b": {"n_heads": 8, "n_kv_heads": 2, "n_layers": 2},
+               "xlstm-1.3b@4": {"n_heads": 4, "n_layers": 2}}
+#: the plan rules over ``repro``'s default plan for ``HEADS_WHOLE``
+HEADS_WHOLE_RULES = {"embed": "data"}
+
+
+def arch_of(key: str) -> str:
+    """The registry's name of an arch set's key (``arch`` or ``arch@variant``)."""
+    return key.split("@")[0]
+
+
+def seq_parallel_config(arch: str, archs=None):
+    return registry.get(arch_of(arch)).reduced(**(archs or SEQ_PARALLEL)[arch])
 
 
 @contextlib.contextmanager
@@ -235,35 +256,37 @@ def exact_f64(on: bool):
         yield
 
 
-def seq_parallel_steps(params_path: str) -> dict:
-    """On each of 8 ranks, each of ``SEQ_PARALLEL``'s archs on a (2, 4)
-    mesh under ``repro``'s default plan, from the parameters saved in
-    ``params_path`` (``{arch}/{name}``, the port's state dict), in f32 and
-    in f64 (``exact_f64``): (arch, dtype name) -> ``_seq_parallel_arch``."""
+def seq_parallel_steps(params_path: str, archs=None, rules=None, s_max: int = 40) -> dict:
+    """On each of 8 ranks, each of ``archs``' archs (``SEQ_PARALLEL``'s by
+    default) on a (2, 4) mesh under ``repro``'s default plan with ``rules``
+    over it, from the parameters saved in ``params_path``
+    (``{arch}/{name}``, the port's state dict), in f32 and in f64
+    (``exact_f64``): (arch, dtype name) -> ``_seq_parallel_arch``."""
     from repro_torch.parallel.sharding import default_plan
 
     mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
     out = {}
     with np.load(params_path) as f:
-        for arch in SEQ_PARALLEL:
-            cfg = seq_parallel_config(arch)
+        for arch in archs or SEQ_PARALLEL:
+            cfg = seq_parallel_config(arch, archs)
             state = {k.split("/", 1)[1]: torch.from_numpy(f[k]) for k in f.files
                      if k.split("/", 1)[0] == arch}
-            plan = default_plan(cfg, {"data": 2, "model": 4})
+            plan = default_plan(cfg, {"data": 2, "model": 4}).override(**(rules or {}))
             for exact in (False, True):
                 with exact_f64(exact):
                     out[arch, "float64" if exact else "float32"] = _seq_parallel_arch(
-                        cfg, mesh, plan, state)
+                        cfg, mesh, plan, state, s_max)
     return out
 
 
-def _seq_parallel_arch(cfg, mesh, plan, state: dict) -> dict:
+def _seq_parallel_arch(cfg, mesh, plan, state: dict, s_max: int = 40) -> dict:
     """One train step (loss, gradient norm, and each parameter's gradient
     norm as the step's optimizer receives it) and a prefill's logits with
     the sequence split over ``model``; then, without the split (the dry
-    run's decode plan), a prefill and one decode step of the prompt's last
-    token at position 32, its logits gathered whole.  The model and the
-    batch in ``torch.float32`` (f64 under ``exact_f64``)."""
+    run's decode plan), a prefill into caches of ``s_max`` and one decode
+    step of the prompt's last token at position 32, its logits gathered
+    whole.  The model and the batch in ``torch.float32`` (f64 under
+    ``exact_f64``)."""
     apply_updates = adamw.apply_updates
     batch = {k: v.to(torch.float32) if v.is_floating_point() else v
              for k, v in _family_batch(cfg).items()}
@@ -287,14 +310,14 @@ def _seq_parallel_arch(cfg, mesh, plan, state: dict) -> dict:
                 step = steps.make_train_step(cfg, adamw.OptConfig(
                     lr=1e-3, warmup_steps=1, total_steps=4))
                 with torch.no_grad():
-                    res["prefill"] = model.prefill(prompt, 40)[0].full_tensor().numpy()
+                    res["prefill"] = model.prefill(prompt, s_max)[0].full_tensor().numpy()
                 opt = adamw.init_state(dict(model.named_parameters()))
                 with mock.patch.object(adamw, "apply_updates", recorded):
                     _, m = step(model, opt, dt)
                 res["loss"], res["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
             else:
                 with torch.no_grad():
-                    _, caches = model.prefill(prompt, 40)
+                    _, caches = model.prefill(prompt, s_max)
                     token = distribute_tensor(
                         batch["tokens"][:, -1:].contiguous(), mesh,
                         p.placements(mesh, "batch", "seq"), src_data_rank=None)

@@ -643,6 +643,45 @@ def _decode_once(q, k, v, kv_len):
     return got
 
 
+@pytest.mark.parametrize("kv_len", [100, 1500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_lse_matches_plain(card, kv_len, dtype):
+    """The kernel's log-sum-exp, with one split (kv_len 100) and several."""
+    rng = np.random.default_rng(kv_len)
+    q = _randn(rng, (4, 56, 1, 128), dtype, card)
+    k = _randn(rng, (4, 8, 2048, 128), dtype, card)
+    v = _randn(rng, (4, 8, 2048, 128), dtype, card)
+    got, lse = dec.decode_attention(q, k, v, kv_len, return_lse=True)
+    want, want_lse = dec.decode_attention_plain(q, k, v, kv_len, return_lse=True)
+    _assert_attn_close(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    before = dec.launch_count()
+    out, empty = ops.decode_attention_slice(q, k, v, 0)
+    assert dec.launch_count() == before and out.abs().max() == 0
+    assert torch.isneginf(empty).all()
+
+
+@pytest.mark.parametrize("offset", [0, 448, 1024])
+def test_flash_rows_at_an_offset_match_plain(card, offset):
+    """The flash kernel and its backward over K/V cut to the rows' end,
+    against the plain version masked over the whole K."""
+    rng = np.random.default_rng(offset)
+    q, k, v = (_randn(rng, shape, torch.bfloat16, card).requires_grad_(True)
+               for shape in ((1, 8, 256, 128), (1, 2, 2048, 128), (1, 2, 2048, 128)))
+    dout = _randn(rng, (1, 8, 256, 128), torch.bfloat16, card)
+    before = (fa.launch_count(), fab.launch_count())
+    got = ops.flash_attention_rows(q, k, v, offset)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    assert (fa.launch_count(), fab.launch_count()) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_rows_plain(q, k, v, offset)
+    want_grads = torch.autograd.grad(want, (q, k, v), dout)
+    _assert_attn_close(got.detach(), want.detach(), torch.bfloat16)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * float(w.float().abs().max()))
+    assert all(float(g[:, :, offset + 256:].abs().max()) == 0 for g in grads[1:])
+
+
 #: kv_len = splits * per + offset, where per is a range's length in this
 #: card's plan for (B 2, 16 kv heads, MHA, kv_len 1040): 1, and one less,
 #: exactly and one more than the first two range boundaries
