@@ -170,7 +170,9 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    at the reduced shape; mLSTM at xlstm-1.3b's train shape (B 2, S 4096,
    H 4, D 1024, bf16) and at B 1, D 1024 in f32, D 64,
    ragged S 1000, with an entering
-   state and the final state's gradients, and with steep gates; each case's
+   state and the final state's gradients, and with steep gates; then the
+   SSD at 4 heads, the split a mesh gives a rank (zamba2-1.2b's 64 over 16
+   ranks); each case's
    route (``wgmma`` for bf16, and for the mLSTM at head dims that are
    multiples of 64; ``simt`` otherwise), device time, its CUDA kernels'
    time in one call (``SCAN_BWD_PASSES``), bound and the plain backward's
@@ -235,8 +237,11 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    ``model_flops`` equal to phase 17's, its ``compute_s`` at most phase
    17's measured warm step, and its predicted memory beside the measured
    peak CUDA MB; (c) deepseek-coder-33b train_4k and xlstm-1.3b
-   decode_32k, whose heads do not divide the model axis, at 2 layers on
-   the fake 16 x 16 mesh with the published embed rule, each ``ok``; on
+   decode_32k, whose heads do not divide the model axis, and zamba2-1.2b
+   and xlstm-1.3b train_4k cut to 32 x 1024 (the SSD's heads and the
+   mLSTM's chunk rows split over the model axis), at 2 layers on the fake
+   16 x 16 mesh with the published embed rule, each ``ok``, FLOPs a
+   device logged; on
    the card, (d) the flash kernel on a rank's query rows at an offset of
    the keys (``ops.flash_attention_rows``: K/V cut to the rows' end),
    forward and backward, against the plain version masked over the whole
@@ -3062,6 +3067,11 @@ SCAN_BWD_CASES = [
      {"state": True}),
     ("mlstm", "steep gates", 1, 1024, 4, 256, 0, 128, torch.bfloat16, {"steep": True}),
 ]
+#: the SSD backward at 4 heads, a rank's share of zamba2-1.2b's 64 on a
+#: model axis of 16
+SCAN_BWD_SPLIT_CASES = [
+    ("ssd", "zamba2-1.2b train, 4 heads a rank", 2, 4096, 4, 64, 64, 128, torch.bfloat16, {}),
+]
 #: the scan backwards' CUDA kernels by name, each group the SIMT route's
 #: kernel and the tensor-core route's (``_tc``, ``pass_parts``); the SSD's
 #: tensor-core route fuses chunk_mats and chunk_grads into ``chunk_tc``
@@ -3295,7 +3305,8 @@ def scan_backward_cases(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     bw, _ = memory_rate(card)
     out = {"ssd_scan_bwd": [], "mlstm_scan_bwd": []}
-    for kind, label, b, s, h, p, n, chunk, dtype, opts in SCAN_BWD_CASES:
+    for kind, label, b, s, h, p, n, chunk, dtype, opts in (SCAN_BWD_CASES
+                                                           + SCAN_BWD_SPLIT_CASES):
         name = f"{kind}_scan_bwd"
         mod = ssb if kind == "ssd" else mlb
         args = scan_bwd_inputs(gen, kind, b, s, h, p, n, dtype, opts)
@@ -4024,9 +4035,14 @@ def sharded_phase(train: dict, smi: str) -> dict:
     return row
 
 
-#: phase 19 (c)'s cells: the archs whose heads do not divide the model axis,
-#: at 2 layers on the fake 16 x 16 mesh with the published config's embed rule
-HEADS_CELLS = (("deepseek-coder-33b", "train_4k"), ("xlstm-1.3b", "decode_32k"))
+#: phase 19 (c)'s cells, at 2 layers on the fake 16 x 16 mesh with the
+#: published config's embed rule: (arch, shape, (seq, batch) the shape is
+#: cut to, or None): the archs whose heads do not divide the model axis at
+#: their published shapes; zamba2's Mamba block on rows with its SSD heads
+#: split and xlstm's mLSTM scan with each chunk's rows split at the parity
+#: tests' cut (tests/dryrun_cells.CUT), whose FLOPs a device PERF.md lists
+HEADS_CELLS = (("deepseek-coder-33b", "train_4k", None), ("xlstm-1.3b", "decode_32k", None),
+               ("zamba2-1.2b", "train_4k", (1024, 32)), ("xlstm-1.3b", "train_4k", (1024, 32)))
 #: phase 19 (d): the flash kernel on a rank's query rows at an offset of the
 #: keys (label, batch, q heads, kv heads, keys, rows, offset, head dim)
 ROWS_CASES = (("deepseek-coder-33b rows 1024-1279 of 2048", 1, 56, 8, 2048, 256, 1024, 128),
@@ -4039,22 +4055,28 @@ SLICE_CASES = (("deepseek-coder-33b slice of 2048, 1500 filled", 4, 56, 8, 2048,
 
 
 def heads_cells(smi: str) -> list:
-    """Phase 19 (c): ``lower_cell`` of ``HEADS_CELLS`` at their published
-    shapes, each required ``ok``, FLOPs and collectives a device logged."""
+    """Phase 19 (c): ``lower_cell`` of ``HEADS_CELLS`` at their shapes, each
+    required ``ok``, FLOPs and collectives a device logged."""
+    from unittest import mock
+
     import torch.distributed as dist
 
     from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.parallel.sharding import default_plan
 
     rows = []
-    for arch, shape in HEADS_CELLS:
+    for arch, shape, cut in HEADS_CELLS:
         embed = default_plan(registry.get(arch), {"data": 16, "model": 16}).get("embed")
+        published = dryrun.SHAPES[shape]
+        shapes = {} if cut is None else {shape: ShapeConfig(shape, published.kind, *cut)}
         t = time.perf_counter()
         try:
-            rec, gm = dryrun.lower_cell(arch, shape, multi_pod=False,
-                                        plan_overrides={"embed": embed},
-                                        cfg_overrides={"n_layers": 2})
+            with mock.patch.dict(dryrun.SHAPES, shapes):
+                rec, gm = dryrun.lower_cell(arch, shape, multi_pod=False,
+                                            plan_overrides={"embed": embed},
+                                            cfg_overrides={"n_layers": 2})
         except Exception as e:  # reported, then the phase fails
             fail(f"dryrun: {arch} {shape} 16x16 at 2 layers failed: {type(e).__name__}: {e}")
         seconds = time.perf_counter() - t
@@ -4062,11 +4084,12 @@ def heads_cells(smi: str) -> list:
         if rec["status"] != "ok" or dist.is_initialized():
             fail(f"dryrun: {arch} {shape} gave {rec['status']}, a process group left up: "
                  f"{dist.is_initialized()}")
-        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "plan": rec["plan"],
+        row = {"arch": arch, "shape": shape, "cut": cut, "mesh": rec["mesh"], "plan": rec["plan"],
                "status": rec["status"], "seconds": seconds, "lower_s": rec["lower_s"],
                "torch": rec["torch"], "cost": rec["cost"],
                "collectives": rec["collectives"], "roofline": rec["roofline"]}
-        log(f"dryrun (c) {arch} {shape} 16x16, 2 layers, embed -> {embed}: ok in "
+        log(f"dryrun (c) {arch} {shape} (seq, batch cut to {cut}) 16x16, 2 layers, "
+            f"embed -> {embed}: ok in "
             f"{seconds:.1f} s (torch {rec['torch']}); {rec['cost']['flops_per_device']:.0f} "
             f"FLOPs a device, collectives by region {rec['collectives']['by_region']} [{smi}]")
         rows.append(row)

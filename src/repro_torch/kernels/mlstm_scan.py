@@ -219,6 +219,89 @@ def mlstm_scan_plain(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tupl
     return hs, (C, n, m)
 
 
+def _chunk_gates(lf, li, qn: int) -> tuple:
+    """``cumF`` and ``u = li - cumF`` of each chunk of ``qn`` rows, (B, nc,
+    H, Q) in f32, the sequence a whole number of chunks."""
+    b, s, h = lf.shape
+    if s % qn:
+        raise ValueError(f"the sequence ({s}) is not a whole number of chunks of {qn}")
+    cum = lf.float().reshape(b, s // qn, qn, h).permute(0, 1, 3, 2).cumsum(dim=-1)
+    return cum, li.float().reshape(b, s // qn, qn, h).permute(0, 1, 3, 2) - cum
+
+
+def _by_chunk(t, qn: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, nc, H, Q, D) in f32."""
+    b, s, h, d = t.shape
+    return t.float().reshape(b, s // qn, qn, h, d).permute(0, 1, 3, 2, 4)
+
+
+def chunk_states_plain(k, v, lf, li, rows: tuple, *, block_q: int = 128) -> tuple:
+    """What rows ``[r0, r0 + nr)`` of each chunk add to the chunk's end
+    state, stabilised by the chunk's ``a = max u``: ``dC = (k ⊙ e^{u -
+    a})ᵀ v`` (B, nc, H, D, D) and ``dn`` (B, nc, H, D), f32 (the plain
+    scan's chunk update on those rows; ``nr`` may be 0)."""
+    qn = _chunk(block_q, k.shape[1])
+    r0, nr = rows
+    cum, u = _chunk_gates(lf, li, qn)
+    a = u.amax(dim=-1)
+    wgt = torch.exp(u[..., r0:r0 + nr] - a[..., None])
+    kw = _by_chunk(k, qn)[..., r0:r0 + nr, :] * wgt[..., None]
+    return kw.transpose(-1, -2) @ _by_chunk(v, qn)[..., r0:r0 + nr, :], kw.sum(dim=-2)
+
+
+def pass_states(dC, dn, lf, li, state=None, *, block_q: int = 128) -> tuple:
+    """The state entering each chunk, ``(C (B, nc, H, D, D), n (B, nc, H,
+    D), m (B, nc, H))``, and the state after the last, from each chunk's
+    whole update ``dC``, ``dn`` (:func:`chunk_states_plain` over all its
+    rows) and ``state`` (the one entering the first chunk, or None): ``g =
+    max(m, a)``, ``C̃ <- e^{m - g} C̃ + e^{a - g} dC``, ``m <- cumF_Q + g``,
+    the plain scan's carry."""
+    b, nc, h, d, _ = dC.shape
+    cum, u = _chunk_gates(lf, li, _chunk(block_q, lf.shape[1]))
+    a, end = u.amax(dim=-1), cum[..., -1]
+    if state is None:
+        C = dC.new_zeros((b, h, d, d))
+        n = dn.new_zeros((b, h, d))
+        m = dC.new_full((b, h), NEG_INF)
+    else:
+        C, n, m = (t.float() for t in state)
+    entering = ([], [], [])
+    for c in range(nc):
+        for kept, t in zip(entering, (C, n, m)):
+            kept.append(t)
+        g = torch.maximum(m, a[:, c])
+        decay, add = torch.exp(m - g), torch.exp(a[:, c] - g)
+        C = decay[..., None, None] * C + add[..., None, None] * dC[:, c]
+        n = decay[..., None] * n + add[..., None] * dn[:, c]
+        m = end[:, c] + g
+    return tuple(torch.stack(t, dim=1) for t in entering), (C, n, m)
+
+
+def mlstm_chunk_rows_plain(q, k, v, lf, li, entering: tuple, rows: tuple, *,
+                           block_q: int = 128) -> torch.Tensor:
+    """h of rows ``[r0, r0 + nr)`` of every chunk, each chunk entered from
+    its own state ``entering`` (:func:`pass_states`) -> (B, nc, nr, H, D)
+    f32: the plain scan's outputs of those rows, scored against the
+    chunk's keys up to them (those after them are masked out)."""
+    qn = _chunk(block_q, q.shape[1])
+    r0, nr = rows
+    end = r0 + nr
+    C, n, m = entering
+    cum, u = _chunk_gates(lf, li, qn)
+    cum, u = cum[..., :end], u[..., :end]
+    qc = _by_chunk(q, qn)[..., r0:end, :]  # (B,nc,H,nr,D)
+    kc, vc = _by_chunk(k, qn)[..., :end, :], _by_chunk(v, qn)[..., :end, :]
+    g = torch.maximum(m[..., None], torch.cummax(u, dim=-1).values)[..., r0:end]
+    tri = torch.ones((end, end), dtype=torch.bool, device=q.device).tril()[r0:end]
+    diff = u[..., None, :] - g[..., :, None]  # (B,nc,H,nr,end)
+    W = (qc @ kc.transpose(-1, -2)) * diff.masked_fill(~tri, float("-inf")).exp()
+    carry = torch.exp(m[..., None] - g)
+    num = W @ vc + carry[..., None] * (qc @ C)
+    den = (W.sum(dim=-1) + carry * (qc @ n[..., None])[..., 0]).abs()
+    floor = torch.exp(-(cum[..., r0:end] + g))
+    return (num / torch.maximum(den, floor)[..., None]).permute(0, 1, 3, 2, 4)
+
+
 def _vector_rows(t: torch.Tensor) -> bool:
     """Whether every (b, s, h) row of ``t`` starts 16-byte aligned with a unit
     stride along D, as the kernel's vector loads need."""

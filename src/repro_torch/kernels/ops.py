@@ -372,8 +372,13 @@ class MLSTMScan(torch.autograd.Function):
 def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
     """xh (B,S,H,P), la (B,S,H), Bm/Cm (B,S,N) -> (y, h_final (B,H,P,N) f32).
 
-    Under a mesh the scan's inputs are split by batch only."""
+    Under a mesh the scan's inputs are split by batch, and by heads where
+    the plan splits them (:func:`_ssd_heads`)."""
     if _is_dtensor(xh):
+        from repro_torch.parallel.context import split_over
+
+        if split_over(xh.shape[2], "mlp"):
+            return _ssd_heads(xh, la, Bm, Cm, h0, block_q)
         b4, b3 = ("batch", None, None, None), ("batch", None, None)
         return _on_shards(lambda *a: ssd_scan(*a, block_q=block_q),
                           (xh, la, Bm, Cm, h0),
@@ -385,11 +390,132 @@ def ssd_scan(xh, la, Bm, Cm, h0=None, *, block_q: int = 128) -> tuple:
     return _ssd.ssd_scan(xh, la, Bm, Cm, h0, block_q=block_q)
 
 
+def _grad_partial(split, whole) -> list:
+    """``whole``'s placements, Partial on the mesh dims where ``split`` is
+    split and ``whole`` is not: the gradient of an input that every rank
+    reads whole while another input's dim is split, each rank's part of
+    the sum."""
+    from torch.distributed.tensor import Partial
+
+    return [Partial() if s.is_shard() and not w.is_shard() else w
+            for s, w in zip(split, whole)]
+
+
+def _ssd_heads(xh, la, Bm, Cm, h0, block_q: int) -> tuple:
+    """The SSD scan of DTensors with its heads split over the mesh axes of
+    the plan's ``mlp`` rule, as GSPMD splits them: each rank scans its own
+    heads (xh's and la's dim 2, h0's and h_final's dim 1) over the whole
+    sequence, Bm and Cm whole; their gradients are partial sums over the
+    mesh dims that split the heads."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan
+
+    plan = current_plan()
+    mesh = xh.device_mesh
+    x4 = list(plan.placements(mesh, "batch", None, "mlp", None))
+    x3 = list(plan.placements(mesh, "batch", None, "mlp"))
+    bc = list(plan.placements(mesh, "batch", None, None))
+    st = list(plan.placements(mesh, "batch", "mlp", None, None))
+    bc_grad = _grad_partial(x3, bc)
+    h0p = None if h0 is None else st
+    return local_map(lambda *a: ssd_scan(*a, block_q=block_q),
+                     out_placements=(x4, st),
+                     in_placements=(x4, x3, bc, bc, h0p),
+                     in_grad_placements=(x4, x3, bc_grad, bc_grad, h0p),
+                     device_mesh=mesh, redistribute_inputs=True)(xh, la, Bm, Cm, h0)
+
+
+def mlstm_chunk_rows(q, k, v, lf, li, entering: tuple, rows: tuple, *,
+                     block_q: int = 128) -> torch.Tensor:
+    """h of rows ``[r0, r0 + nr)`` of every chunk of the sequence, each
+    chunk entered from its own state ``entering`` (C (B, nc, H, D, D), n
+    (B, nc, H, D), m (B, nc, H)) -> (B, nc, nr, H, D) f32.  The plain
+    version scores those rows alone, against the keys up to them; on the
+    card the mLSTM kernel scans each chunk's rows up to ``r0 + nr`` as a
+    sequence of its own from the chunk's state, and keeps the last ``nr``."""
+    if q.device.type == "cpu" or _plain_depth:
+        return _mlstm.mlstm_chunk_rows_plain(q, k, v, lf, li, entering, rows, block_q=block_q)
+    b, s, h, d = q.shape
+    qn = min(block_q, s)
+    r0, nr = rows
+
+    def per_chunk(t):
+        return t.reshape(b * (s // qn), qn, *t.shape[2:])[:, :r0 + nr]
+
+    state = tuple(t.reshape(b * (s // qn), *t.shape[2:]).contiguous() for t in entering)
+    out, _ = mlstm_scan(*(per_chunk(t) for t in (q, k, v, lf, li)), state, block_q=qn)
+    return out[:, r0:].reshape(b, s // qn, nr, h, d)
+
+
+def _mlstm_rows(q, k, v, lf, li, state, block_q: int, rows: int) -> tuple:
+    """The mLSTM scan of DTensors where the plan splits the sequence over
+    more ranks than it has chunks (``context.scan_rows``), placed as GSPMD
+    places ``repro``'s chunked scan: each chunk's rows split over the ranks
+    that hold them, ``rows`` a rank, and every chunk run on every rank.
+
+    A rank whose own rows are the ``j``-th ``rows`` of their chunk works on
+    the ``j``-th rows of every chunk, over the gathered sequence: (1) what
+    they add to each chunk's end state, a partial sum over the ranks that
+    split the sequence, taken from the first chunk's ranks alone (the
+    others add nothing, over no rows); (2) the state entering each chunk,
+    from those sums, on every rank; (3) their outputs, of which the rank
+    keeps its own chunk's.  The inputs' gradients are partial sums over the
+    mesh dims that split the sequence; the final state's gradient enters
+    through the first rank alone."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.context import current_plan, local_offset
+
+    plan = current_plan()
+    mesh = q.device_mesh
+    qn = min(block_q, q.shape[1])
+    seq4 = list(plan.placements(mesh, "batch", "seq", None, None))
+    row0 = local_offset(q, 1, seq4)
+    own = (row0 % qn, rows)
+    w5, w4, w3, w2 = (list(plan.placements(mesh, "batch", *(None,) * n)) for n in (4, 3, 2, 1))
+    p5, p4, p3, p2 = (_grad_partial(seq4, w) for w in (w5, w4, w3, w2))
+
+    def added(k, v, lf, li):
+        return _mlstm.chunk_states_plain(k, v, lf, li, (own[0], rows if row0 < qn else 0),
+                                         block_q=qn)
+
+    dC, dn = local_map(added, out_placements=(p5, p4), in_placements=(w4, w4, w3, w3),
+                       in_grad_placements=(p4, p4, p3, p3), device_mesh=mesh,
+                       redistribute_inputs=True)(k, v, lf, li)
+
+    def outputs(q, k, v, lf, li, dC, dn, C0, n0, m0):
+        s0 = None if C0 is None else (C0, n0, m0)
+        entering, final = _mlstm.pass_states(dC, dn, lf, li, s0, block_q=qn)
+        h = mlstm_chunk_rows(q, k, v, lf, li, entering, own, block_q=qn)[:, row0 // qn]
+        if row0:
+            final = tuple(t.detach() for t in final)
+        return (h, *final)
+
+    st, st_grad = (None,) * 3, (None,) * 3
+    if state is not None:
+        st, st_grad = (w4, w3, w2), (p4, p3, p2)
+    h, C, n, m = local_map(
+        outputs, out_placements=(seq4, w4, w3, w2),
+        in_placements=(w4, w4, w4, w3, w3, w5, w4, *st),
+        in_grad_placements=(p4, p4, p4, p3, p3, p5, p4, *st_grad),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, lf, li, dC, dn,
+                                                     *(state or (None,) * 3))
+    return h, (C, n, m)
+
+
 def mlstm_scan(q, k, v, lf, li, state=None, *, block_q: int = 128) -> tuple:
     """q/k/v (B,S,H,D), lf/li (B,S,H) -> (h (B,S,H,D) f32, (C, n, m) f32).
 
-    Under a mesh the scan's inputs are split by batch only."""
+    Under a mesh the scan's inputs are split by batch only, but where the
+    plan splits the sequence over more ranks than it has chunks
+    (:func:`_mlstm_rows`)."""
     if _is_dtensor(q):
+        from repro_torch.parallel.context import scan_rows
+
+        rows = scan_rows(q.shape[1], block_q)
+        if rows:
+            return _mlstm_rows(q, k, v, lf, li, state, block_q, rows)
         b4, b3, b2 = ("batch", None, None, None), ("batch", None, None), ("batch", None)
         st = (b4, b3, b2) if state is not None else (None,) * 3
 

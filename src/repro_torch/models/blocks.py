@@ -39,6 +39,7 @@ from repro_torch.parallel.context import (
     replicate,
     rows_einsum,
     rows_product,
+    seq_rows,
     shard_act,
     split_dims,
     write_row,
@@ -91,11 +92,11 @@ def heads_whole(cfg) -> bool:
 
 
 def rows_norm(cfg, p, x):
-    """The norm that opens a GQA attention block or an mLSTM block:
-    :func:`norm`, but with the heads kept whole the rows stay split as the
-    residual stream splits them (the block's projections take each rank's
-    own rows, so nothing is gathered)."""
-    if cfg.mla is None and heads_whole(cfg):
+    """The norm that opens an attention block or an mLSTM block:
+    :func:`norm`, but with the heads kept whole (MLA: the sequence split)
+    the rows stay split as the residual stream splits them (the block's
+    projections take each rank's own rows, so nothing is gathered)."""
+    if heads_whole(cfg) if cfg.mla is None else seq_rows():
         return norm(cfg, p, x, ACT)
     return norm(cfg, p, x)
 
@@ -293,18 +294,79 @@ def mla_cache_shape(cfg, batch: int, s_max: int) -> dict:
     }
 
 
-def _mla_q(cfg, p, x, cos, sin) -> tuple:
+def _mla_q(cfg, p, x, cos, sin, product=None) -> tuple:
+    """(q_nope, q_rope); ``product`` runs the projections (``torch.einsum``'s
+    signature; :func:`~repro_torch.parallel.context.rows_einsum` on each
+    rank's rows where the sequence is split)."""
     m = cfg.mla
-    cq = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wdq"]), p["q_norm"])
-    q = torch.einsum("bsr,rhk->bhsk", cq, p["wuq"])
+    product = product or torch.einsum
+    cq = rmsnorm(product("bsd,dr->bsr", x, p["wdq"]), p["q_norm"])
+    q = product("bsr,rhk->bhsk", cq, p["wuq"])
     return q[..., : m.nope_dim], apply_rope(q[..., m.nope_dim :], cos, sin)
 
 
-def _mla_latents(cfg, p, x, cos, sin) -> tuple:
-    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wdkv"]), p["kv_norm"])
-    k_rope = torch.einsum("bsd,dr->bsr", x, p["wkr"])
+def _mla_latents(cfg, p, x, cos, sin, product=None) -> tuple:
+    product = product or torch.einsum
+    c_kv = rmsnorm(product("bsd,dr->bsr", x, p["wdkv"]), p["kv_norm"])
+    k_rope = product("bsd,dr->bsr", x, p["wkr"])
     k_rope = apply_rope(k_rope[:, None], cos, sin)[:, 0]  # (B, S, rope)
     return c_kv, k_rope
+
+
+def _rows_einsum(eq: str, x, w):
+    """One product of :func:`rows_einsum`."""
+    return rows_einsum(eq, x, w)[0]
+
+
+def _mla_rows(cfg, p, x, cos, sin) -> tuple:
+    """MLA's train and prefill where the plan splits the sequence, as
+    ``repro``'s GSPMD places it: the projections on each rank's own rows by
+    the whole weights; the latents c_kv (B,S,kv_lora) and k_rope (B,S,rope)
+    gathered whole along the sequence; each rank's query rows, all heads,
+    scored against the whole latents from its row offset
+    (:func:`_mla_attend_rows`).  -> (out (B,S,D), c_kv, k_rope), the
+    latents whole."""
+    x = shard_act(x, ACT)
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin, _rows_einsum)
+    c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin, _rows_einsum)
+    whole = ("batch", None, None)
+    c_kv, k_rope = shard_act(c_kv, whole), shard_act(k_rope, whole)
+    return _mla_attend_rows(cfg, p, q_nope, q_rope, c_kv, k_rope), c_kv, k_rope
+
+
+def _mla_attend_rows(cfg, p, q_nope, q_rope, c_kv, k_rope):
+    """:func:`mla_attend` of DTensors through ``local_map``: each rank's
+    query rows (q (B,H,Sq,*) split along Sq) against the whole latents, the
+    causal mask from the rank's row offset, the weights gathered; the
+    latents' gradients are partial sums over the mesh dims that split the
+    sequence, the weights' over those that split the rows (batch or
+    sequence)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q_nope.device_mesh
+    plan = current_plan()
+    rows = list(plan.placements(mesh, "batch", None, "seq", None))
+    lat = list(plan.placements(mesh, "batch", None, None))
+    out = list(plan.placements(mesh, "batch", "seq", None))
+    lat_grad = [Partial() if r.is_shard() and r.dim == 2 else w for r, w in zip(rows, lat)]
+    whole = [Replicate()] * mesh.ndim
+    w_grad = [Partial() if r.is_shard() else Replicate() for r in rows]
+    offset = local_offset(q_nope, 2, rows)
+    names = ("wuk", "wuv", "wo")
+
+    def local(q_nope, q_rope, c_kv, k_rope, *ws):
+        sq, sk = q_nope.shape[2], c_kv.shape[1]
+        pos = torch.arange(sk, device=c_kv.device)
+        mask = (offset + pos[:sq, None]) >= pos[None, :]
+        return mla_attend(cfg, dict(zip(names, ws)), q_nope, q_rope, c_kv, k_rope, mask)
+
+    return local_map(local, out_placements=out,
+                     in_placements=(rows, rows, lat, lat, *(whole for _ in names)),
+                     in_grad_placements=(rows, rows, lat_grad, lat_grad,
+                                         *(w_grad for _ in names)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q_nope, q_rope, c_kv, k_rope, *(p[n] for n in names))
 
 
 def mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask, groups=()) -> torch.Tensor:
@@ -361,6 +423,8 @@ def _causal_mask(sq: int, device) -> torch.Tensor:
 
 
 def mla_train(cfg, p, x, cos, sin) -> torch.Tensor:
+    if seq_rows():
+        return _mla_rows(cfg, p, x, cos, sin)[0]
     q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
     c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
     mask = _causal_mask(x.shape[1], x.device)
@@ -369,9 +433,12 @@ def mla_train(cfg, p, x, cos, sin) -> torch.Tensor:
 
 def mla_prefill(cfg, p, x, cos, sin, s_max: int) -> tuple:
     sq = x.shape[1]
-    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
-    c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
-    out = mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, _causal_mask(sq, x.device))
+    if seq_rows():
+        out, c_kv, k_rope = _mla_rows(cfg, p, x, cos, sin)
+    else:
+        q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
+        c_kv, k_rope = _mla_latents(cfg, p, x, cos, sin)
+        out = mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, _causal_mask(sq, x.device))
     pad = (0, 0, 0, s_max - sq)
     return out, {"c_kv": zero_pad(c_kv, pad), "k_rope": zero_pad(k_rope, pad)}
 

@@ -53,7 +53,7 @@ from repro_torch.models.params import (
     stack_defs,
     unstack,
 )
-from repro_torch.parallel.context import replicate, rows_product, shard_act
+from repro_torch.parallel.context import replicate, rows_product, seq_rows, shard_act
 
 # ---------------------------------------------------------------------------
 # Layer definitions
@@ -216,8 +216,14 @@ def _ffn_half(cfg, kind: str, p, x) -> tuple:
 
 def _recurrent_norm(cfg, kind: str, p, x):
     """The norm that opens a recurrent block: the mLSTM's takes each rank's
-    own rows (:func:`~repro_torch.models.blocks.rows_norm`)."""
-    return (B.rows_norm if kind == "mlstm" else B.norm)(cfg, p.get("norm1"), x)
+    own rows (:func:`~repro_torch.models.blocks.rows_norm`), and so does the
+    Mamba block's where the sequence is split (its projections take the
+    rows)."""
+    if kind == "mlstm":
+        return B.rows_norm(cfg, p.get("norm1"), x)
+    if seq_rows():
+        return B.norm(cfg, p.get("norm1"), x, B.ACT)
+    return B.norm(cfg, p.get("norm1"), x)
 
 
 def layer_train(cfg, kind: str, p, x, ctx: Ctx) -> tuple:

@@ -25,7 +25,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.blocks import rmsnorm
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import replicate
+from repro_torch.parallel.context import (
+    replicate,
+    rows_einsum,
+    seq_rows,
+    shard_act,
+    split_over,
+)
 
 
 def _dims(cfg) -> tuple:
@@ -100,8 +106,18 @@ def _gates(p, dt_raw: torch.Tensor) -> tuple:
 def mamba_train(cfg, p, x, return_state: bool = False, state=None):
     """x (B,S,D) -> y (B,S,D) (+ the final {conv, ssm} state if requested)."""
     s, di, nheads, conv_dim = _dims(cfg)
-    proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    rows = seq_rows()
+    if rows:
+        # a split sequence: each rank's own rows by the whole weight, as
+        # GSPMD places the projections (so no split of the output columns
+        # meets the slices below); the causal conv then takes the sequence
+        # whole, and the scan splits the heads (ops.ssd_scan)
+        proj = rows_einsum("bsd,dk->bsk", x, p["in_proj"])[0]
+        z, xbc, dt_raw = _split_proj(cfg, proj)
+        xbc, dt_raw = (shard_act(t, ("batch", None, None)) for t in (xbc, dt_raw))
+    else:
+        proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
+        z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_init = None if state is None else state["conv"]
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_init)
 
@@ -116,8 +132,15 @@ def mamba_train(cfg, p, x, return_state: bool = False, state=None):
     y, h_last = ops.ssd_scan(xh_dt, la, Bmat, Cmat, h0, block_q=s.chunk)
     y = y + xh * p["d_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(*x.shape[:2], di)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"])
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    if rows:
+        # back to each rank's own rows, the inner dim whole, for the gate,
+        # the norm and the out projection (as GSPMD multiplies them)
+        y = shard_act(y, ("batch", "seq", None))
+        y = rmsnorm(y * F.silu(z), shard_act(p["gate_norm"], (None,)))
+        out = rows_einsum("bsk,kd->bsd", y, p["out_proj"])[0]
+    else:
+        y = rmsnorm(y * F.silu(z), p["gate_norm"])
+        out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
     if return_state:
         return out, {"conv": conv_state, "ssm": h_last}
     return out
@@ -149,6 +172,9 @@ def mamba_decode(cfg, p, x, state: dict) -> tuple:
     h.mul_(decay[..., None, None]).add_(
         torch.einsum("bhp,bn->bhpn", dtx, Bmat[:, 0].float())
     )
+    if split_over(nheads, "mlp"):
+        # the state's read-out on each rank's own heads, as GSPMD splits it
+        h = shard_act(h, ("batch", "mlp", None, None))
     y = torch.einsum("bhpn,bn->bhp", h, Cmat[:, 0].float())
     y = y.to(x.dtype) + xh * p["d_skip"].to(x.dtype)[None, :, None]
     y = y.reshape(x.shape[0], 1, di)

@@ -36,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.blocks import heads_whole, rmsnorm
 from repro_torch.models.mamba import _causal_conv  # the same depthwise conv
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.context import elementwise, rows_einsum, shard_act
+from repro_torch.parallel.context import elementwise, rows_einsum, shard_act, value_split
 
 
 def _dims(cfg) -> tuple:
@@ -141,20 +141,23 @@ def mlstm_train(cfg, p, x, return_state: bool = False, state=None):
 
 
 def _step(qh, kh, vh, lf, li, C, n, mp):
-    """One token's recurrence on plain tensors: q/k/v (B,H,Dh), the log
-    gates (B,H); C, n and m updated in place; h (B,H,Dh) f32."""
-    B, H, Dh = qh.shape
+    """One token's recurrence on plain tensors: q/k (B,H,Dk), v (B,H,Dv),
+    the log gates (B,H); C (B,H,Dk,Dv), n and m updated in place; h
+    (B,H,Dv) f32.  A slice of v's value columns and of C's gives that
+    slice of h."""
+    B, H, Dk = qh.shape
+    Dv = vh.shape[-1]
     mn = torch.maximum(lf + mp, li)
     a = torch.exp(lf + mp - mn)  # (B,H)
     b = torch.exp(li - mn)
-    # C <- a C + b k vᵀ, in place: (B·H, Dh, Dh) += (b k) (Dh, 1) @ v (1, Dh)
+    # C <- a C + b k vᵀ, in place: (B·H, Dk, Dv) += (b k) (Dk, 1) @ v (1, Dv)
     C.mul_(a[..., None, None])
-    C.view(B * H, Dh, Dh).baddbmm_(
-        (b[..., None] * kh).reshape(B * H, Dh, 1), vh.reshape(B * H, 1, Dh)
+    C.view(B * H, Dk, Dv).baddbmm_(
+        (b[..., None] * kh).reshape(B * H, Dk, 1), vh.reshape(B * H, 1, Dv)
     )
     n.mul_(a[..., None]).add_(b[..., None] * kh)
     mp.copy_(mn)
-    num = torch.bmm(qh.reshape(B * H, 1, Dh), C.view(B * H, Dh, Dh)).reshape(B, H, Dh)
+    num = torch.bmm(qh.reshape(B * H, 1, Dk), C.view(B * H, Dk, Dv)).reshape(B, H, Dv)
     den = torch.maximum((qh * n).sum(dim=-1).abs(), torch.exp(-mn))
     return num / den[..., None]
 
@@ -163,16 +166,21 @@ def _recur(qh, kh, vh, lf, li, C, n, mp):
     """:func:`_step`; DTensors take it on their local shards (each row's
     recurrence is its own; DTensor has no rule for the in-place
     ``baddbmm_``): the state as it lies, so it is updated in place, and the
-    token's q, k, v and gates placed as the state's (batch, heads); h is
-    placed so too."""
+    token's q, k and gates placed as the state's (batch, heads), v and h as
+    C's value columns."""
     args = (qh, kh, vh, lf, li, C, n, mp)
     if not hasattr(C, "placements"):
         return _step(*args)
     from torch.distributed.tensor.experimental import local_map
 
+    from torch.distributed.tensor import Shard
+
     state = list(mp.placements)
-    placed = (state,) * 5 + (list(C.placements), list(n.placements), state)
-    return local_map(_step, out_placements=state, in_placements=placed,
+    # C (B, H, Dk, Dv): its value columns are v's and h's dim 2
+    values = [Shard(2) if p.is_shard() and p.dim == 3 else p for p in C.placements]
+    placed = (state, state, values, state, state, list(C.placements),
+              list(n.placements), state)
+    return local_map(_step, out_placements=values, in_placements=placed,
                      device_mesh=C.device_mesh, redistribute_inputs=True)(*args)
 
 
@@ -196,14 +204,27 @@ def mlstm_decode(cfg, p, x, state: dict) -> tuple:
 
     xch = xc.reshape(B, H, Dh).transpose(0, 1)  # (H, B, Dh)
     xmh = xm.reshape(B, H, Dh).transpose(0, 1)
-    qh = torch.bmm(xch, p["wq"]).transpose(0, 1).float()  # (B, H, Dh)
-    kh = (torch.bmm(xch, p["wk"]) / math.sqrt(Dh)).transpose(0, 1).float()
-    vh = torch.bmm(xmh, p["wv"]).transpose(0, 1).float()
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    values = value_split(H, Dh)
+    if values:
+        # the value columns of C split over the plan's mlp axes, as GSPMD
+        # splits the state's work: the per-head projections by columns
+        # (q and k then gathered whole, v kept split), the state placed so
+        cols = (None, None, "mlp")
+        wq, wk, wv = (shard_act(w, cols) for w in (wq, wk, wv))
+        state["C"] = shard_act(state["C"], ("batch", None, None, "mlp"))
+    qh = torch.bmm(xch, wq).transpose(0, 1).float()  # (B, H, Dh)
+    kh = (torch.bmm(xch, wk) / math.sqrt(Dh)).transpose(0, 1).float()
+    vh = torch.bmm(xmh, wv).transpose(0, 1).float()
+    if values:
+        qh, kh = (shard_act(t, ("batch", None, None)) for t in (qh, kh))
     gates = xc[:, 0].float() @ p["w_gates"] + p["gate_bias"][None]
     lf = elementwise(F.logsigmoid, gates[..., :H])
     li = gates[..., H:]
 
     h = _recur(qh, kh, vh, lf, li, state["C"], state["n"], state["m"])
+    if values:
+        h = shard_act(h, ("batch", None, None))
     h = h.to(x.dtype)
     h = rmsnorm(h.reshape(B, 1, di), p["head_norm"])
     return (h * F.silu(z)) @ p["down"], state

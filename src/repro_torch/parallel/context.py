@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 from types import SimpleNamespace
-from typing import Iterator, NamedTuple
+from typing import Iterator, NamedTuple, Optional
 
 #: process-wide, not thread-local (the reference's is): on the card the
 #: autograd engine runs the backward, and so the recompute of a
@@ -223,6 +223,127 @@ def attention_placement(n_heads: int) -> Placement:
                          slices)
     return Placement("kv_rows" if plan.get("kv_heads") != plan.get("heads") else "plan",
                      slices)
+
+
+def seq_rows() -> bool:
+    """Whether the plan splits the sequence over more than one rank (train
+    and prefill under ``repro``'s default plan): the recurrent blocks and
+    MLA then run their products on each rank's own rows, as GSPMD places
+    them (:func:`rows_einsum`).  False without a context, in decode (the
+    plan's ``seq`` is None there) and on a model axis of one rank."""
+    if _CTX.mesh is None or _CTX.plan is None:
+        return False
+    return _ranks(_CTX.plan.get("seq")) > 1
+
+
+def split_over(size: int, logical: str) -> bool:
+    """Whether the plan splits a dim of ``size`` over more than one rank by
+    ``logical``'s rule, evenly: the SSD scan's heads (``mlp``) and the
+    mLSTM's value dim (``mlp``) are then split over it.  False without a
+    context and on mesh axes of one rank."""
+    if _CTX.mesh is None or _CTX.plan is None:
+        return False
+    n = _ranks(_CTX.plan.get(logical))
+    return n > 1 and size % n == 0
+
+
+class GroupTiles(NamedTuple):
+    """The part of the MoE's dispatch and combine a rank computes
+    (:func:`moe_tiles`), as GSPMD partitions them for ``repro``'s plan.
+
+    ``dispatch``: (first group, groups) of the rank's local groups whose
+    dispatch it computes, over their whole tokens; ``lead``: whether its
+    product is the one that counts where several ranks compute the same
+    groups (the others add zeros).  ``rows``: (first group, groups, first
+    token, tokens) of the combine, and of the dispatch's and the combine's
+    backward; ``own``: for each group of ``rows``, whether its tokens there
+    are this rank's own rows of the residual stream (each token's output
+    and gradients come from its owner alone).  ``dims``: the mesh dims that
+    split those rows, over which the results are partial sums."""
+
+    dispatch: tuple
+    lead: bool
+    rows: tuple
+    own: tuple
+    dims: tuple
+
+
+def moe_tiles(x, xg) -> Optional[GroupTiles]:
+    """Where each rank's share of the MoE layer lies, for the residual
+    stream ``x`` (B,S,D) cut into groups ``xg`` (G,T,D) (both DTensors),
+    as GSPMD gives it to a device; None where the plain products serve (no
+    context, a plain tensor, groups that do not tile the rows).
+
+    Train and prefill (the sequence split over a model axis of M ranks, R
+    rows a rank): a group of T tokens spans M_T = T / R ranks.  The
+    combine and the backward take each group's R tokens at the rank's
+    offset; the dispatch takes whole groups: with one sequence a data rank,
+    only the rank's own group (its M_T ranks compute the same one), else
+    all of the rank's groups, and the combine all of them too (the groups'
+    order puts the batch outside the sequence, so GSPMD cannot split them
+    by the sequence; it repeats the work on M / M_T ranks).  Decode (one
+    group held whole): the combine takes the rank's own batch rows."""
+    if _CTX.mesh is None or _CTX.plan is None or not _is_dtensor(xg):
+        return None
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    G, T = xg.shape[0], xg.shape[1]
+    B, S = x.shape[0], x.shape[1]
+    if G * T != B * S:
+        return None
+    coord = mesh.get_coordinate()
+    if seq_rows():
+        axis = _CTX.plan.get("seq")
+        if not isinstance(axis, str) or split_dims(xg, 1):
+            return None
+        dim = names.index(axis)
+        M, r = mesh.size(dim), coord[dim]
+        if S % M or T % (S // M) or S % T:
+            return None
+        R = S // M
+        MT = T // R
+        groups_local = xg.to_local().shape[0]
+        j = r // MT  # the rank's group within a sequence
+        rows_t = ((r % MT) * R, R)
+        if groups_local == S // T:  # one sequence a rank: its own group
+            return GroupTiles((j, 1), r % MT == 0, (j, 1, *rows_t), (True,), (dim,))
+        own = tuple(g % (S // T) == j for g in range(groups_local))
+        return GroupTiles((0, groups_local), True, (0, groups_local, *rows_t), own, (dim,))
+    if G != 1 or split_dims(xg, 0) or split_dims(xg, 1):
+        return None
+    dims = tuple(split_dims(x, 0))
+    if not dims:
+        return None
+    b0, bl = local_offset(x, 0), x.to_local().shape[0]
+    return GroupTiles((0, 1), True, (0, 1, b0 * S, bl * S), (True,), dims)
+
+
+def value_split(n_heads: int, value_dim: int) -> bool:
+    """Whether the mLSTM's decode state splits its value dim (``value_dim``
+    columns) over the plan's ``mlp`` axes, as GSPMD splits the state's
+    work: where the heads are kept whole (:func:`attention_placement`) and
+    those axes, of more than one rank, divide the value dim."""
+    return (split_over(value_dim, "mlp")
+            and attention_placement(n_heads).heads == "rows")
+
+
+def scan_rows(seq_len: int, chunk: int) -> Optional[int]:
+    """The rows of each chunk a rank computes in a chunked scan (the
+    mLSTM's) of ``seq_len`` rows in chunks of ``chunk``, where the plan
+    splits the sequence over more ranks than it has chunks: GSPMD then
+    splits each chunk's rows over the ranks that hold them and runs every
+    chunk on every rank (``repro``'s products of 64 of a chunk's 128 rows
+    at 1024 rows over 16).  None where each rank holds whole chunks (GSPMD
+    gathers them for the scan's loop, which runs whole on every rank), in
+    decode, without a context and on a model axis of one rank."""
+    if not seq_rows():
+        return None
+    ranks = _ranks(_CTX.plan.get("seq"))
+    q = min(chunk, seq_len)
+    if seq_len % ranks or seq_len % q:
+        return None
+    rows = seq_len // ranks
+    return rows if rows < q and q % rows == 0 else None
 
 
 def replicate(x):

@@ -53,13 +53,31 @@ def _sources(graph) -> dict:
     return out
 
 
-def port_cell(monkeypatch, arch: str, shape: str, mesh: str) -> tuple:
+def by_op(gm, top: int = 15) -> list:
+    """The ``top`` largest products of a captured graph, summed by (op,
+    input shapes): (FLOPs, calls, op, shapes) each, largest first."""
+    from repro_torch.core.hlo_cost import _arg_values, node_flops
+
+    sums = {}
+    for node in gm.graph.nodes:
+        flops = node_flops(node)
+        if flops:
+            key = (node.target.overloadpacket.__name__,
+                   tuple(tuple(t.shape) for t in _arg_values(node)))
+            total, calls = sums.get(key, (0.0, 0))
+            sums[key] = (total + flops, calls + 1)
+    rows = sorted(((f, n, op, shapes) for (op, shapes), (f, n) in sums.items()),
+                  reverse=True)
+    return rows[:top]
+
+
+def port_cell(monkeypatch, arch: str, shape: str, mesh: str, graphs=None) -> tuple:
     """(record, the captured step's collectives: (region, kind, result
     bytes, what its input is: ``"weight"`` a parameter's local tensor,
     ``"cache"`` a decode cache's or recurrent state's, else
     ``"activation"``) each, the bytes of one layer's decode cache (or
     recurrent state) on a device, 0 for a train or prefill cell) of the
-    port's cell."""
+    port's cell; the captured graph is appended to ``graphs`` if given."""
     from torch.multiprocessing.reductions import StorageWeakRef
 
     from repro_torch.core.hlo_cost import node_value, tensors_in
@@ -84,6 +102,8 @@ def port_cell(monkeypatch, arch: str, shape: str, mesh: str) -> tuple:
         record, gm = real_lower(cfg, shp, device_mesh, plan)
         if device_mesh is None:
             return record, gm
+        if graphs is not None:
+            graphs.append(gm)
         arguments, args = captured[-1][1], tensors_in(dryrun._local(made[-1]))
         # the arguments are the parameters' local tensors, then the step's
         # (the caches first in decode)
@@ -155,6 +175,63 @@ print("REPRO", json.dumps(out))
 """
 
 
+_REPRO_BY_OP = """
+import json, math
+from repro.launch import dryrun
+from repro.configs.base import ShapeConfig
+from repro.configs import registry
+from repro.core.hlo import _INSTR_RE, _OPERANDS_RE, computation_factors, split_computations
+from repro.core.hlo_cost import _LHS_C_RE, _dims
+from repro.parallel.sharding import default_plan
+for name, (kind, seq, batch) in {cut!r}.items():
+    dryrun.SHAPES[name] = ShapeConfig(name, kind, seq, batch)
+arch, shape, mesh = {cell!r}
+ms = ({{"pod": 2, "data": 16, "model": 16}} if mesh == "2x16x16"
+      else {{"data": 16, "model": 16}})
+embed = default_plan(registry.get(arch), ms).get("embed")
+rec, compiled = dryrun.lower_cell(arch, shape, multi_pod=mesh == "2x16x16",
+                                  plan_overrides={{"embed": embed}},
+                                  cfg_overrides={{"n_layers": {layers}}})
+hlo = compiled.as_text()
+comps, entry = split_computations(hlo)
+factors = computation_factors(hlo)
+types, sums = {{}}, {{}}
+for lines in comps.values():
+    for line in lines:
+        m = _INSTR_RE.match(line)
+        if m:
+            types[m.group(1)] = m.group(2)
+for cname, lines in comps.items():
+    f = factors.get(cname, 1)
+    for line in lines:
+        m = _INSTR_RE.match(line)
+        if not m or m.group(3) != "dot" or f == 0:
+            continue
+        name, ts, op, rest = m.groups()
+        operands = [o for o in _OPERANDS_RE.findall(rest.split("),", 1)[0]) if o in types]
+        k, cm = 1, _LHS_C_RE.search(rest)
+        lhs = _dims(types[operands[0]]) if operands else []
+        for ci in (int(c) for c in (cm.group(1) if cm else "").split(",") if c):
+            k *= lhs[ci] if ci < len(lhs) else 1
+        key = json.dumps([_dims(types[o]) for o in operands])
+        fl, n = sums.get(key, (0.0, 0))
+        sums[key] = (fl + f * 2.0 * math.prod(_dims(ts)) * k, n + f)
+rows = sorted(((fl, n, key) for key, (fl, n) in sums.items()), reverse=True)[:{top}]
+print("BYOP", json.dumps({{"flops": rec["cost"]["flops_per_device"], "rows": rows}}))
+"""
+
+
+def repro_by_op(cell, top: int = 15) -> dict:
+    """``repro``'s side of :func:`by_op` for one cell: its compiled HLO's
+    dots summed by operand shapes, each times its computation's execution
+    count, read with the HLO parsers ``benchmarks/inspect_cell.py`` uses
+    (that tool lists bytes, not products)."""
+    out = run_with_devices(_REPRO_BY_OP.format(cut=CUT, cell=tuple(cell), layers=N_LAYERS,
+                                               top=top),
+                           n_devices=512, timeout=1800)
+    return json.loads(out.split("BYOP", 1)[1])
+
+
 def repro_flops(cells) -> dict:
     """(arch, shape, mesh) -> repro's FLOPs a device for each cell, from
     ``repro``'s ``lower_cell`` on 512 forced host devices."""
@@ -178,9 +255,11 @@ def main(argv=None) -> None:
     two FLOPs a device, their ratio, the port's capture seconds, the
     largest collective of a cache region that is not a weight's against
     one layer's cache, and the collectives that take a cache; the records
-    as JSON to ``--out``.
+    as JSON to ``--out``.  ``--by-op`` also prints each cell's 15 largest
+    products by (op, input shapes) (:func:`by_op`).
 
         PYTHONPATH=src python tests/dryrun_cells.py --out build/dryrun_parity.json
+        PYTHONPATH=src python tests/dryrun_cells.py --by-op --cell zamba2-1.2b/train_4k/16x16
     """
     import argparse
     import time
@@ -190,15 +269,20 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
     ap.add_argument("--cell", nargs="*", default=None, help="arch/shape/mesh")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--by-op", action="store_true",
+                    help="print each cell's 15 largest products by (op, input shapes)")
+    ap.add_argument("--no-repro", action="store_true",
+                    help="the port's side only (no repro subprocess)")
     args = ap.parse_args(argv)
     cells = [tuple(c.split("/")) for c in args.cell] if args.cell else FAULT_2
-    want = repro_flops(cells)
+    want = {c: None for c in cells} if args.no_repro else repro_flops(cells)
     rows = []
     for cell in cells:
         t = time.perf_counter()
+        graphs = []
         with pytest.MonkeyPatch.context() as mp:
             try:
-                record, ops, cache = port_cell(mp, *cell)
+                record, ops, cache = port_cell(mp, *cell, graphs=graphs)
             except Exception as e:  # a failing cell is reported and the sweep goes on
                 record, ops, cache = {"status": "error", "error": f"{type(e).__name__}: {e}"}, [], 0
         seconds = time.perf_counter() - t
@@ -211,6 +295,16 @@ def main(argv=None) -> None:
                "error": record.get("error")}
         rows.append(row)
         print(json.dumps(row), flush=True)
+        if args.by_op and graphs:
+            for flops, calls, op, shapes in by_op(graphs[-1]):
+                share = flops / got if got else 0.0
+                print(f"  port {op} {[list(s) for s in shapes]} x{calls}: {flops:.4g} "
+                      f"({share:.1%})", flush=True)
+        if args.by_op and not args.no_repro:
+            theirs = repro_by_op(cell)
+            for flops, calls, shapes in theirs["rows"]:
+                print(f"  repro dot {shapes} x{calls}: {flops:.4g} "
+                      f"({flops / theirs['flops']:.1%})", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

@@ -31,8 +31,7 @@ def make_inputs(d, archs: dict) -> dict:
     leaves, states, trees = {}, {}, {}
     for arch in archs:
         cfg = sharded_ranks.seq_parallel_config(arch, archs)
-        jcfg = jax_registry.get(sharded_ranks.arch_of(arch)).reduced(**archs[arch],
-                                                                     dtype="float32")
+        jcfg = sharded_ranks.reduced(jax_registry, arch, archs[arch], dtype="float32")
         params = P._np_tree(jax_steps.make_loss_fn(jcfg)[1].init(jax.random.PRNGKey(0)))
         trees[arch] = jax.tree.structure(params)
         # repro initialises in bf16 whatever the config's dtype; both take f32
@@ -70,6 +69,7 @@ def run_sharded(inputs, rules=None, s_max: int = 40) -> dict:
 #: without it
 _JAX = """
 import contextlib
+from dataclasses import replace
 from unittest import mock
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import registry
@@ -88,7 +88,11 @@ for arch, over in {archs!r}.items():
             if dtype == "float64":
                 stack.enter_context(jax.enable_x64(True))
                 stack.enter_context(mock.patch.object(jnp, "float32", jnp.float64))
-            cfg = registry.get(arch.split("@")[0]).reduced(**over, dtype=dtype)
+            fields = dict(over)
+            group = fields.pop("moe_group", None)
+            cfg = registry.get(arch.split("@")[0]).reduced(**fields, dtype=dtype)
+            if group is not None:
+                cfg = replace(cfg, moe=replace(cfg.moe, group_size=group))
             loss_fn, model = S.make_loss_fn(cfg)
             prefill = jax.jit(S.make_prefill_step(cfg, {s_max})[0])
             treedef = jax.tree.structure(jax.eval_shape(model.init, jax.random.PRNGKey(0)))

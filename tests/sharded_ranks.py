@@ -221,6 +221,9 @@ SEQ_PARALLEL = {"olmo-1b": {"n_heads": 4, "n_kv_heads": 4}, "zamba2-1.2b": {},
 #: with 4 heads, which divide the axis (a key ``arch@variant`` names a
 #: second config of one arch)
 HEADS_WHOLE = {"deepseek-coder-33b": {"n_heads": 6, "n_kv_heads": 2, "n_layers": 2},
+               # 2 heads of 128: at 32 rows over 4 model ranks each chunk
+               # of 16 splits its rows (8 a rank); decode splits C's value
+               # columns (32 a rank)
                "xlstm-1.3b": {"n_heads": 2, "n_layers": 2},
                "minicpm3-4b": {"n_heads": 6, "n_layers": 2},
                "gemma-2b": {"n_heads": 8, "n_kv_heads": 2, "n_layers": 2},
@@ -228,14 +231,36 @@ HEADS_WHOLE = {"deepseek-coder-33b": {"n_heads": 6, "n_kv_heads": 2, "n_layers":
 #: the plan rules over ``repro``'s default plan for ``HEADS_WHOLE``
 HEADS_WHOLE_RULES = {"embed": "data"}
 
+#: the reduced grok-1-314b (8 query heads on ``model``, 2 KV heads whole)
+#: at 2 layers, its MoE groups of 16 tokens, which tile the (2, 4) mesh's
+#: rows (8 a model rank: each group over 2 ranks), held under ``repro``'s
+#: default plan with ``HEADS_WHOLE_RULES`` (FSDP: the expert weights'
+#: ``embed`` over ``data``)
+MOE_SPLIT = {"grok-1-314b": {"n_heads": 8, "n_kv_heads": 2, "n_layers": 2,
+                             "moe_group": 16}}
+
 
 def arch_of(key: str) -> str:
     """The registry's name of an arch set's key (``arch`` or ``arch@variant``)."""
     return key.split("@")[0]
 
 
+def reduced(registry_, arch: str, over: dict, **kw):
+    """``registry_``'s reduced config of ``arch`` with the fields ``over``
+    sets, where ``"moe_group"`` sets the MoE's group size (both packages'
+    registries)."""
+    import dataclasses
+
+    over = dict(over)
+    group = over.pop("moe_group", None)
+    cfg = registry_.get(arch_of(arch)).reduced(**over, **kw)
+    if group is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, group_size=group))
+    return cfg
+
+
 def seq_parallel_config(arch: str, archs=None):
-    return registry.get(arch_of(arch)).reduced(**(archs or SEQ_PARALLEL)[arch])
+    return reduced(registry, arch, (archs or SEQ_PARALLEL)[arch])
 
 
 @contextlib.contextmanager

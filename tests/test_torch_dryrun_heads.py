@@ -24,15 +24,6 @@ import pytest
 
 import dryrun_cells as D
 
-#: (arch, shape, mesh) -> the cause outside the placement of the heads for
-#: which the cell's FLOPs may miss repro's
-KNOWN = {
-    ("grok-1-314b", "prefill_32k", "2x16x16"): (
-        "MoE dispatch and combine einsums run whole on every model rank: the "
-        "port's MoE groups split over the data axes only, where GSPMD also "
-        "splits each group's tokens over model (ROADMAP.md section 3, fault 4)"),
-}
-
 CELLS = [("deepseek-coder-33b", "train_4k", "16x16"),
          ("deepseek-coder-33b", "decode_32k", "2x16x16"),
          ("grok-1-314b", "prefill_32k", "2x16x16"),
@@ -60,6 +51,4 @@ def test_cell_places_with_repros_flops(cell, repro, monkeypatch):
     ratio = got / want
     print(f"{'/'.join(cell)}: FLOPs a device port {got:.0f}, repro {want:.0f}, "
           f"ratio {ratio:.6f}")
-    if abs(ratio - 1) > D.FLOPS_RTOL and cell in KNOWN:
-        pytest.xfail(f"{KNOWN[cell]}: port {got:.0f}, repro {want:.0f} FLOPs a device")
     assert ratio == pytest.approx(1, abs=D.FLOPS_RTOL), (got, want)

@@ -1216,3 +1216,33 @@ def test_app_oracles_on_the_card_match_the_cpu(card, app):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), w, rtol=5e-5, atol=5e-6)
+
+
+@pytest.mark.parametrize("D,dtype", [(1024, torch.bfloat16), (128, torch.float32)])
+@pytest.mark.parametrize("r0", [0, 64])
+def test_mlstm_chunk_rows_on_the_card_match_the_plain_version(card, D, dtype, r0):
+    """``ops.mlstm_chunk_rows`` (a mesh's rows of each chunk, the sequence
+    split over more ranks than it has chunks): the kernel on each chunk's
+    rows up to the rank's, from the chunk's entering state, against the
+    plain version's rows; the gradients through the kernels' autograd
+    against autograd of the plain version."""
+    from repro_torch.kernels import ops
+
+    B, S, H, Q, R = 1, 512, 2, 128, 64
+    rng = np.random.default_rng(D + r0)
+    q, k, v, lf, li = _mlstm_inputs(rng, B, S, H, D, dtype, card)
+    dC, dn = ms.chunk_states_plain(k, v, lf, li, (0, Q), block_q=Q)
+    entering, _ = ms.pass_states(dC, dn, lf, li, None, block_q=Q)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lf, li)]
+    before = ms.launch_count()
+    got = ops.mlstm_chunk_rows(*leaves, entering, (r0, R), block_q=Q)
+    assert ms.launch_count() == before + 1
+    dh = _randn(rng, tuple(got.shape), torch.float32, card)
+    (got * dh).sum().backward()
+    plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v, lf, li)]
+    want = ms.mlstm_chunk_rows_plain(*plain, entering, (r0, R), block_q=Q)
+    (want * dh).sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S // Q, R, H, D)
+    _mlstm_close((got, ()), (want, ()))
+    _scan_bwd_close([t.grad for t in leaves], [t.grad for t in plain], dtype)
