@@ -239,9 +239,13 @@ Phases (each one fails the run with a non-zero exit on any mismatch):
    peak CUDA MB; (c) deepseek-coder-33b train_4k and xlstm-1.3b
    decode_32k, whose heads do not divide the model axis, and zamba2-1.2b
    and xlstm-1.3b train_4k cut to 32 x 1024 (the SSD's heads and the
-   mLSTM's chunk rows split over the model axis), at 2 layers on the fake
-   16 x 16 mesh with the published embed rule, each ``ok``, FLOPs a
-   device logged; on
+   mLSTM's chunk rows split over the model axis), gemma-2b and
+   deepseek-coder-33b decode_32k cut to 128 x 4096, at 2 layers on the
+   fake 16 x 16 mesh with the published embed rule, each ``ok``, FLOPs a
+   device logged, deepseek's decode held within 2 % of ``repro``'s FLOPs
+   and gemma's ``embed`` region to at most twice ``repro``'s wire bytes
+   (``REPRO_HELD``: the embedding looked up in each rank's vocab rows,
+   decode's q/k/v over each model rank's slice of d_model); on
    the card, (d) the flash kernel on a rank's query rows at an offset of
    the keys (``ops.flash_attention_rows``: K/V cut to the rows' end),
    forward and backward, against the plain version masked over the whole
@@ -4042,7 +4046,19 @@ def sharded_phase(train: dict, smi: str) -> dict:
 #: split and xlstm's mLSTM scan with each chunk's rows split at the parity
 #: tests' cut (tests/dryrun_cells.CUT), whose FLOPs a device PERF.md lists
 HEADS_CELLS = (("deepseek-coder-33b", "train_4k", None), ("xlstm-1.3b", "decode_32k", None),
-               ("zamba2-1.2b", "train_4k", (1024, 32)), ("xlstm-1.3b", "train_4k", (1024, 32)))
+               ("zamba2-1.2b", "train_4k", (1024, 32)), ("xlstm-1.3b", "train_4k", (1024, 32)),
+               ("gemma-2b", "decode_32k", (4096, 128)),
+               ("deepseek-coder-33b", "decode_32k", (4096, 128)))
+#: phase 19 (c): repro's record of a cell at the same cut, from ``python
+#: tests/dryrun_cells.py`` on a CPU (JAX is not installed beside the card),
+#: held here: FLOPs a device within ``HELD_FLOPS_RTOL`` (decode's q/k/v
+#: contracted over each model rank's slice of d_model) and the embed
+#: region's wire bytes a device at most ``HELD_EMBED_RATIO`` times repro's
+#: (the tokens looked up in each rank's vocab rows)
+REPRO_HELD = {("deepseek-coder-33b", "decode_32k"): {"flops": 2950692864.0},
+              ("gemma-2b", "decode_32k"): {"embed_wire": 122880.0}}
+HELD_FLOPS_RTOL = 0.02
+HELD_EMBED_RATIO = 2.0
 #: phase 19 (d): the flash kernel on a rank's query rows at an offset of the
 #: keys (label, batch, q heads, kv heads, keys, rows, offset, head dim)
 ROWS_CASES = (("deepseek-coder-33b rows 1024-1279 of 2048", 1, 56, 8, 2048, 256, 1024, 128),
@@ -4088,10 +4104,28 @@ def heads_cells(smi: str) -> list:
                "status": rec["status"], "seconds": seconds, "lower_s": rec["lower_s"],
                "torch": rec["torch"], "cost": rec["cost"],
                "collectives": rec["collectives"], "roofline": rec["roofline"]}
+        held = REPRO_HELD.get((arch, shape), {})
+
+        def beside(key):
+            return f" (repro {held[key]:.0f})" if key in held else ""
+
+        flops = rec["cost"]["flops_per_device"]
+        embed_wire = float(rec["collectives"]["by_region"].get("embed", (0, 0))[1])
+        if "flops" in held:
+            row["repro_flops"], row["flops_ratio"] = held["flops"], flops / held["flops"]
+            if abs(row["flops_ratio"] - 1) > HELD_FLOPS_RTOL:
+                fail(f"dryrun: {arch} {shape} does {flops:.0f} FLOPs a device against "
+                     f"repro's {held['flops']:.0f} (ratio {row['flops_ratio']:.4f})")
+        if "embed_wire" in held:
+            row["repro_embed_wire"], row["embed_wire"] = held["embed_wire"], embed_wire
+            if embed_wire > HELD_EMBED_RATIO * held["embed_wire"]:
+                fail(f"dryrun: {arch} {shape} moves {embed_wire:.0f} wire bytes a device "
+                     f"in embed against repro's {held['embed_wire']:.0f}")
         log(f"dryrun (c) {arch} {shape} (seq, batch cut to {cut}) 16x16, 2 layers, "
             f"embed -> {embed}: ok in "
-            f"{seconds:.1f} s (torch {rec['torch']}); {rec['cost']['flops_per_device']:.0f} "
-            f"FLOPs a device, collectives by region {rec['collectives']['by_region']} [{smi}]")
+            f"{seconds:.1f} s (torch {rec['torch']}); {flops:.0f} FLOPs a device"
+            f"{beside('flops')}, embed wire bytes {embed_wire:.0f}{beside('embed_wire')}"
+            f", collectives by region {rec['collectives']['by_region']} [{smi}]")
         rows.append(row)
     return rows
 

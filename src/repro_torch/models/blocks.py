@@ -34,14 +34,18 @@ from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel.context import (
     attention_placement,
+    contraction_slices,
     current_plan,
+    embedding,
     local_offset,
     replicate,
     rows_einsum,
     rows_product,
     seq_rows,
     shard_act,
+    sliced_einsum,
     split_dims,
+    table_split,
     write_row,
     write_rows,
     zero_pad,
@@ -188,19 +192,21 @@ def attn_cache_shape(cfg, batch: int, s_max: int) -> dict:
     }
 
 
-def _qkv(cfg, p, x, cos, sin) -> tuple:
+def _qkv(cfg, p, x, cos, sin, decode: bool = False) -> tuple:
     heads = attention_placement(cfg.n_heads).heads
+    # the whole heads' products: on each rank's rows by the gathered
+    # weights, or in decode under FSDP over each model rank's slice of d
+    whole = sliced_einsum if contraction_slices(decode) else rows_einsum
     if heads == "rows":
         # each rank's own rows (its part of the sequence, or of the batch in
-        # decode) by the whole weights: the (heads x head_dim) outputs are
-        # never split, as the heads do not divide the model axis
-        q, k, v = rows_einsum("bsd,dhk->bhsk", shard_act(x, ACT),
-                              p["wq"], p["wk"], p["wv"])
+        # decode): the (heads x head_dim) outputs are never split, as the
+        # heads do not divide the model axis
+        q, k, v = whole("bsd,dhk->bhsk", shard_act(x, ACT), p["wq"], p["wk"], p["wv"])
     else:
         q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
         if heads == "kv_rows":
             # query heads split, KV heads whole (they do not divide the axis)
-            k, v = rows_einsum("bsd,dhk->bhsk", shard_act(x, ACT), p["wk"], p["wv"])
+            k, v = whole("bsd,dhk->bhsk", shard_act(x, ACT), p["wk"], p["wv"])
         else:
             k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
             v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
@@ -245,7 +251,7 @@ def attn_decode(cfg, p, x, cos, sin, cache: dict, pos: int) -> tuple:
     The reference masks keys ``<= pos`` (inclusive); the kernel's ``kv_len``
     is exclusive, hence ``pos + 1``.
     """
-    q, k_new, v_new = _qkv(cfg, p, x, cos, sin)
+    q, k_new, v_new = _qkv(cfg, p, x, cos, sin, decode=True)
     k, v = cache["k"], cache["v"]
     if _split_cache(cfg, k):
         # the cache placed as the plan splits it, each rank writing and
@@ -551,11 +557,14 @@ def embed_defs(cfg) -> dict:
 
 def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
     tok = p["tok"]
-    if hasattr(tok, "placements"):
-        # under a mesh the table is gathered whole over the vocab first and
-        # read by F.embedding: DTensor's vocab-parallel lookup leaves a
-        # masked partial gradient that the tied LM head's partial one cannot
-        # join, and indexing's backward has no sharding on torch 2.11
+    if table_split(tok):
+        # each rank's own rows of the table, the partial sums reduced to the
+        # residual stream's placements; the table's gradient is placed as
+        # the table is, so the tied LM head's joins it
+        x = embedding(tok, tokens, ACT)
+    elif hasattr(tok, "placements"):
+        # a table whole on every rank (the (1, 1) mesh), read by
+        # F.embedding: indexing's backward has no sharding on torch 2.11
         x = F.embedding(tokens, shard_act(tok, (None, "embed")))
     else:
         x = tok[tokens]

@@ -16,6 +16,7 @@ replicated DTensors on the context's mesh, so DTensor ops accept them.
 from __future__ import annotations
 
 import contextlib
+import math
 from types import SimpleNamespace
 from typing import Iterator, NamedTuple, Optional
 
@@ -108,6 +109,40 @@ def rows_einsum(eq: str, x, *ws) -> tuple:
                      in_placements=(rows, *(whole for _ in ws)),
                      in_grad_placements=(rows, *(w_grad for _ in ws)),
                      device_mesh=mesh, redistribute_inputs=True)(x, *ws)
+
+
+def sliced_einsum(eq: str, x, *ws) -> tuple:
+    """``torch.einsum(eq, x, w)`` for each ``w`` whose first dim is
+    contracted with x's last, as GSPMD places decode's projections where
+    :func:`contraction_slices` holds: each ``model`` rank contracts its
+    slice of that dim (x's own columns, whole there, and the weight's
+    matching rows, brought from the FSDP split) on x's rows, and the
+    partial sums are all-reduced over ``model``.  Each product keeps x's
+    placements on the dims it keeps."""
+    import torch
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    lhs, out = eq.replace(" ", "").split("->")
+    xs = lhs.split(",")[0]
+    mesh = x.device_mesh
+    m = tuple(mesh.mesh_dim_names).index("model")
+    if not x.placements[m].is_replicate():
+        raise ValueError(f"{eq}: x {x.placements} is not whole on 'model'")
+    rows = list(x.placements)
+    cols = rows[:m] + [Shard(x.ndim - 1)] + rows[m + 1:]
+    w_in = [Replicate()] * mesh.ndim
+    w_in[m] = Shard(0)
+    prod = [Shard(out.index(xs[p.dim])) if p.is_shard() else Replicate() for p in rows]
+    partial = prod[:m] + [Partial()] + prod[m + 1:]
+    w_grad = [Partial() if p.is_shard() else Replicate() for p in rows]
+    w_grad[m] = Shard(0)
+    parts = local_map(lambda x, *ws: tuple(torch.einsum(eq, x, w) for w in ws),
+                      out_placements=tuple(partial for _ in ws),
+                      in_placements=(cols, *(w_in for _ in ws)),
+                      in_grad_placements=(cols, *(w_grad for _ in ws)),
+                      device_mesh=mesh, redistribute_inputs=True)(x, *ws)
+    return tuple(t.redistribute(mesh, prod) for t in parts)
 
 
 def local_offset(x, dim: int, placements=None) -> int:
@@ -223,6 +258,24 @@ def attention_placement(n_heads: int) -> Placement:
                          slices)
     return Placement("kv_rows" if plan.get("kv_heads") != plan.get("heads") else "plan",
                      slices)
+
+
+def contraction_slices(decode: bool) -> bool:
+    """Whether decode's q/k/v projections whose heads are kept whole
+    (:func:`attention_placement`) contract each ``model`` rank's slice of
+    ``d_model`` (:func:`sliced_einsum`), as GSPMD places them: where the
+    plan splits the weights' ``embed`` (FSDP) over F > 1 ranks that divide
+    the ``model`` axis's M > 1, so that each model slice of ``d_model``
+    lies within one FSDP slice (GSPMD moves it there by a permute) and the
+    activation's ``d_model`` is whole on ``model``.  Otherwise the weights
+    are gathered (:func:`rows_einsum`): without a context, in train and
+    prefill (the sequence split over ``model``), on a model axis of one
+    rank, without FSDP, and where F does not divide M (2 x 16 x 16's F of
+    32 against M of 16)."""
+    if not decode or _CTX.mesh is None or _CTX.plan is None or seq_rows():
+        return False
+    f, m = _ranks(_CTX.plan.get("embed")), _ranks("model")
+    return f > 1 and m > 1 and m % f == 0
 
 
 def seq_rows() -> bool:
@@ -356,6 +409,103 @@ def replicate(x):
 
     mesh = _CTX.mesh
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def table_split(table) -> bool:
+    """Whether ``table`` is a DTensor split over more than one rank, with a
+    context installed: :func:`embedding` then looks tokens up in each
+    rank's own shard."""
+    return (_CTX.mesh is not None and _CTX.plan is not None and _is_dtensor(table)
+            and any(p.is_shard() and table.device_mesh.size(i) > 1
+                    for i, p in enumerate(table.placements)))
+
+
+def embedding(table, tokens, logical_axes: tuple):
+    """``table[tokens]`` for a (vocab, d) table split as the plan splits it
+    (:func:`table_split`), placed by ``logical_axes``, as GSPMD partitions
+    the lookup: the tokens, not the table, are gathered over the mesh dims
+    that split the table; each rank takes the rows of its own vocab shard
+    (zeros for tokens outside it) at its own columns; the partial sums
+    over the vocab's mesh dims are reduced, and columns split over FSDP
+    dims are turned into rows by one all-to-all a mesh dim.  Tokens lie in
+    one vocab shard each, so every reduction adds one row to zeros and the
+    result equals the gathered table's lookup bit for bit.  The table's
+    gradient is each rank's scatter-add into its own rows: placed as the
+    table is, partial only over mesh dims that split the tokens' rows and
+    not the table."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not _is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    n = tokens.ndim
+    split = table.placements
+    ids_in = [Replicate() if p.is_shard() else q for p, q in zip(split, tokens.placements)]
+    found = [(Partial() if p.dim == 0 else Shard(n)) if p.is_shard() else q
+             for p, q in zip(split, ids_in)]
+    grad = [p if p.is_shard() else Partial() if q.is_shard() else Replicate()
+            for p, q in zip(split, ids_in)]
+    first = local_offset(table, 0)
+
+    def lookup(t, ids):
+        if t.shape[0] == 0:  # a shard past the vocab's end
+            return t.new_zeros((*ids.shape, t.shape[1]))
+        ids = ids.long() - first
+        mine = (ids >= 0) & (ids < t.shape[0])
+        rows = F.embedding(ids.clamp(0, t.shape[0] - 1), t)
+        return rows.masked_fill(~mine.unsqueeze(-1), 0)
+
+    x = local_map(lookup, out_placements=found, in_placements=(split, ids_in),
+                  in_grad_placements=(grad, ids_in), device_mesh=mesh,
+                  redistribute_inputs=True)(table, tokens)
+    target = _CTX.plan.placements(mesh, *logical_axes)
+    cols = [i for i, p in enumerate(found) if p.is_shard() and p.dim == n]
+    if cols:
+        # the vocab's partial sums first, the columns kept split
+        x = x.redistribute(mesh, [p if i in cols else target[i]
+                                  for i, p in enumerate(found)])
+        if (all(target[i] == Shard(0) for i in cols)
+                and not any(p == Shard(0) for p in x.placements)
+                and x.shape[0] % math.prod(mesh.size(i) for i in cols) == 0):
+            x = _cols_to_rows(x, cols)
+    return x.redistribute(mesh, target)
+
+
+def _cols_to_rows(x, dims: list):
+    """DTensor ``x`` with its last dim split over mesh dims ``dims`` (in
+    mesh order) and its first whole there, split instead along its first
+    dim over them: one all-to-all a mesh dim, the major one first (DTensor's
+    own redistribution gathers on a CPU mesh)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    sizes = [mesh.size(i) for i in dims]
+    groups = [mesh.get_group(i) for i in dims]
+
+    def swap(t):
+        for n, group in zip(sizes, groups):
+            # rows block j goes to rank j; what comes back from rank j is
+            # this rank's rows at rank j's columns, laid out after the
+            # columns already held
+            t = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+                t.contiguous(), None, None, group))
+            t = t.reshape(n, t.shape[0] // n, *t.shape[1:]).movedim(0, -2).flatten(-2)
+        if len(sizes) > 1:
+            # the last dim's sources lead; the mesh's order has the first lead
+            k = len(sizes)
+            t = t.reshape(*t.shape[:-1], *reversed(sizes), t.shape[-1] // math.prod(sizes))
+            lead = t.ndim - k - 1
+            t = t.permute(*range(lead), *reversed(range(lead, lead + k)), t.ndim - 1)
+            t = t.flatten(lead)
+        return t
+
+    rows = [Shard(0) if i in dims else p for i, p in enumerate(x.placements)]
+    return local_map(swap, out_placements=rows, in_placements=(list(x.placements),),
+                     device_mesh=mesh)(x)
 
 
 def zero_pad(x, pad: tuple):

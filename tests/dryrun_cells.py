@@ -170,7 +170,8 @@ for arch, shape, mesh in {cells!r}:
     rec, _ = dryrun.lower_cell(arch, shape, multi_pod=mesh == "2x16x16",
                                plan_overrides={{"embed": embed}},
                                cfg_overrides={{"n_layers": {layers}}})
-    out["/".join((arch, shape, mesh))] = rec["cost"]["flops_per_device"]
+    out["/".join((arch, shape, mesh))] = {{"flops": rec["cost"]["flops_per_device"],
+                                          "collectives": rec["collectives"]}}
 print("REPRO", json.dumps(out))
 """
 
@@ -221,6 +222,53 @@ print("BYOP", json.dumps({{"flops": rec["cost"]["flops_per_device"], "rows": row
 """
 
 
+_REPRO_REGION = """
+import json, re
+from repro.core import compat
+from repro.launch import dryrun
+from repro.configs.base import ShapeConfig
+from repro.configs import registry
+from repro.parallel.sharding import default_plan
+for name, (kind, seq, batch) in {cut!r}.items():
+    dryrun.SHAPES[name] = ShapeConfig(name, kind, seq, batch)
+arch, shape, mesh = {cell!r}
+dims = tuple(int(n) for n in mesh.split("x"))
+axes = ("pod", "data", "model")[-len(dims):]
+dryrun.make_production_mesh = lambda multi_pod=False: compat.make_mesh(dims, axes)
+if {batch!r}:
+    cut = dryrun.SHAPES[shape]
+    dryrun.SHAPES[shape] = ShapeConfig(shape, cut.kind, cut.seq_len, {batch!r})
+embed = {embed!r}
+if embed == "published":
+    embed = default_plan(registry.get(arch), dict(zip(axes, dims))).get("embed")
+rec, compiled = dryrun.lower_cell(arch, shape, multi_pod=len(dims) == 3,
+                                  plan_overrides={{"embed": embed}},
+                                  cfg_overrides={{"n_layers": {layers}}})
+ops = []
+for line in compiled.as_text().splitlines():
+    if "commr::{region}/" in line and re.search(
+            r" (dot|all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)\\(", line):
+        line = re.sub(r", metadata=.*", "", line.strip())
+        ops.append(re.sub(r"source_target_pairs=\\{{.*?\\}}\\}}", "source_target_pairs=...", line))
+print("REGION", json.dumps({{"flops": rec["cost"]["flops_per_device"], "embed": embed,
+                            "by_region": rec["collectives"]["by_region"], "ops": ops}}))
+"""
+
+
+def repro_region(cell, region: str, batch=None, embed="published") -> dict:
+    """``repro``'s compiled HLO of one cell, read in ``region``: its FLOPs a
+    device, wire bytes by region, and the region's dots and collectives
+    (each instruction, its metadata dropped).  The cell's mesh may be any
+    shape (``"8x16"``: data x model; ``"2x16x16"``: pod x data x model),
+    ``batch`` replaces the cut shape's batch, and ``embed`` the published
+    config's ``embed`` rule (a mesh axis, a tuple of them, or None): the
+    probes that tell when GSPMD cuts a contraction."""
+    out = run_with_devices(_REPRO_REGION.format(cut=CUT, cell=tuple(cell), layers=N_LAYERS,
+                                                region=region, batch=batch, embed=embed),
+                           n_devices=512, timeout=1800)
+    return json.loads(out.split("REGION", 1)[1])
+
+
 def repro_by_op(cell, top: int = 15) -> dict:
     """``repro``'s side of :func:`by_op` for one cell: its compiled HLO's
     dots summed by operand shapes, each times its computation's execution
@@ -232,13 +280,37 @@ def repro_by_op(cell, top: int = 15) -> dict:
     return json.loads(out.split("BYOP", 1)[1])
 
 
-def repro_flops(cells) -> dict:
-    """(arch, shape, mesh) -> repro's FLOPs a device for each cell, from
-    ``repro``'s ``lower_cell`` on 512 forced host devices."""
+def repro_records(cells, timeout: int = 600) -> dict:
+    """(arch, shape, mesh) -> ``{"flops": repro's FLOPs a device,
+    "collectives": its record's collectives}`` for each cell, from
+    ``repro``'s ``lower_cell`` on 512 forced host devices (one
+    subprocess)."""
     out = run_with_devices(_REPRO.format(cut=CUT, cells=list(cells), layers=N_LAYERS),
-                           n_devices=512)
+                           n_devices=512, timeout=timeout)
     got = json.loads(out.split("REPRO", 1)[1])
     return {tuple(k.split("/")): v for k, v in got.items()}
+
+
+def repro_flops(cells) -> dict:
+    """(arch, shape, mesh) -> repro's FLOPs a device for each cell."""
+    return {c: r["flops"] for c, r in repro_records(cells).items()}
+
+
+#: how many times ``repro``'s wire bytes a device the port's ``embed``
+#: region may move
+EMBED_WIRE_RATIO = 2.0
+
+
+def region_wire(collectives: dict, region: str) -> float:
+    """A record's wire bytes a device in ``region`` (0 where it has none)."""
+    return float(collectives.get("by_region", {}).get(region, (0, 0))[1])
+
+
+def all_cells(skip=()) -> list:
+    """Every applicable (arch, shape, mesh) cell of the dry run
+    (``dryrun.cell_is_applicable``), but the archs in ``skip``."""
+    return [(a, s, m) for a in registry.ARCH_IDS if a not in skip for s in CUT
+            for m in ("16x16", "2x16x16") if dryrun.cell_is_applicable(a, s)[0]]
 
 
 #: the cells DTensor could not place before the heads were kept whole
@@ -250,32 +322,68 @@ FAULT_2 = ([(a, s, m) for a in ("deepseek-coder-33b", "grok-1-314b", "qwen2-vl-7
 
 
 def main(argv=None) -> None:
-    """Each of ``FAULT_2``'s cells (or those named) captured by the port and
+    """Each of ``FAULT_2``'s cells (or those named, or with ``--all`` every
+    applicable cell but the ``--skip`` archs) captured by the port and
     lowered by ``repro`` at 2 layers and cut shapes: a line a cell with the
-    two FLOPs a device, their ratio, the port's capture seconds, the
-    largest collective of a cache region that is not a weight's against
-    one layer's cache, and the collectives that take a cache; the records
-    as JSON to ``--out``.  ``--by-op`` also prints each cell's 15 largest
-    products by (op, input shapes) (:func:`by_op`).
+    two FLOPs a device and their ratio, the two sides' wire bytes a device
+    and collective counts, in all and by region, the port's capture
+    seconds, the largest collective of a cache region that is not a
+    weight's against one layer's cache, the collectives that take a cache,
+    and ``ok``: FLOPs within ``FLOPS_RTOL`` (where ``repro`` counts any)
+    and the ``embed`` region's wire bytes at most ``EMBED_WIRE_RATIO``
+    times ``repro``'s; the records as JSON to ``--out``.  ``--by-op`` also
+    prints each cell's 15 largest products by (op, input shapes)
+    (:func:`by_op`); ``--region`` prints ``repro``'s HLO in one region of
+    each cell instead (:func:`repro_region`).  Exits 1 where a cell is not
+    ``ok``.
 
         PYTHONPATH=src python tests/dryrun_cells.py --out build/dryrun_parity.json
+        PYTHONPATH=src python tests/dryrun_cells.py --all --skip xlstm-1.3b
         PYTHONPATH=src python tests/dryrun_cells.py --by-op --cell zamba2-1.2b/train_4k/16x16
+        PYTHONPATH=src python tests/dryrun_cells.py --region attn --embed data \\
+            --batch 4096 --cell deepseek-coder-33b/decode_32k/8x16
     """
     import argparse
+    import sys
     import time
 
     import pytest
 
     ap = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
     ap.add_argument("--cell", nargs="*", default=None, help="arch/shape/mesh")
+    ap.add_argument("--all", action="store_true",
+                    help="every applicable cell (dryrun.cell_is_applicable)")
+    ap.add_argument("--skip", nargs="*", default=(), metavar="ARCH",
+                    help="with --all, the archs left out")
     ap.add_argument("--out", default=None)
     ap.add_argument("--by-op", action="store_true",
                     help="print each cell's 15 largest products by (op, input shapes)")
     ap.add_argument("--no-repro", action="store_true",
                     help="the port's side only (no repro subprocess)")
+    ap.add_argument("--region", default=None,
+                    help="print repro's HLO dots and collectives in this region of each "
+                         "--cell (any mesh shape, e.g. 8x16) and stop")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="with --region, the batch in place of the cut shape's")
+    ap.add_argument("--embed", default="published",
+                    help="with --region, the embed rule: a mesh axis, axes joined by '+', "
+                         "or 'none'")
     args = ap.parse_args(argv)
-    cells = [tuple(c.split("/")) for c in args.cell] if args.cell else FAULT_2
-    want = {c: None for c in cells} if args.no_repro else repro_flops(cells)
+    if args.region:
+        embed = (None if args.embed == "none" else tuple(args.embed.split("+"))
+                 if "+" in args.embed else args.embed)
+        for cell in args.cell or ():
+            got = repro_region(cell.split("/"), args.region, args.batch, embed)
+            print(f"{cell} batch {args.batch or CUT[cell.split('/')[1]][2]} embed "
+                  f"{got['embed']}: {got['flops']:.0f} FLOPs a device, by region "
+                  f"{got['by_region']}", flush=True)
+            for op in got["ops"]:
+                print("  " + op[:300], flush=True)
+        return
+    cells = ([tuple(c.split("/")) for c in args.cell] if args.cell
+             else all_cells(args.skip) if args.all else FAULT_2)
+    want = ({c: None for c in cells} if args.no_repro
+            else repro_records(cells, timeout=600 + 120 * len(cells)))
     rows = []
     for cell in cells:
         t = time.perf_counter()
@@ -287,27 +395,42 @@ def main(argv=None) -> None:
                 record, ops, cache = {"status": "error", "error": f"{type(e).__name__}: {e}"}, [], 0
         seconds = time.perf_counter() - t
         got = record.get("cost", {}).get("flops_per_device")
-        worst = largest_activation_collective(ops)
-        row = {"cell": "/".join(cell), "status": record["status"], "port": got,
-               "repro": want[cell], "ratio": got / want[cell] if got and want[cell] else None,
-               "seconds": seconds, "largest_collective": worst, "layer_cache": cache,
-               "caches_gathered": len(gathered_caches(ops)),
+        mine = record.get("collectives", {})
+        theirs = want[cell] or {"flops": None, "collectives": {}}
+        flops = theirs["flops"]
+        ratio = got / flops if got and flops else None
+        embed = (region_wire(mine, "embed"), region_wire(theirs["collectives"], "embed"))
+        ok = (record["status"] == "ok" and (ratio is None or abs(ratio - 1) <= FLOPS_RTOL)
+              and (args.no_repro or embed[0] <= EMBED_WIRE_RATIO * embed[1]))
+        row = {"cell": "/".join(cell), "status": record["status"], "ok": ok,
+               "port": got, "repro": flops, "ratio": ratio,
+               "wire": (mine.get("wire_bytes_per_device"),
+                        theirs["collectives"].get("wire_bytes_per_device")),
+               "n_ops": (mine.get("n_ops"), theirs["collectives"].get("n_ops")),
+               "embed_wire": embed,
+               "by_region": (mine.get("by_region"), theirs["collectives"].get("by_region")),
+               "seconds": seconds, "largest_collective": largest_activation_collective(ops),
+               "layer_cache": cache, "caches_gathered": len(gathered_caches(ops)),
                "error": record.get("error")}
         rows.append(row)
         print(json.dumps(row), flush=True)
         if args.by_op and graphs:
-            for flops, calls, op, shapes in by_op(graphs[-1]):
-                share = flops / got if got else 0.0
-                print(f"  port {op} {[list(s) for s in shapes]} x{calls}: {flops:.4g} "
+            for flops_, calls, op, shapes in by_op(graphs[-1]):
+                share = flops_ / got if got else 0.0
+                print(f"  port {op} {[list(s) for s in shapes]} x{calls}: {flops_:.4g} "
                       f"({share:.1%})", flush=True)
         if args.by_op and not args.no_repro:
-            theirs = repro_by_op(cell)
-            for flops, calls, shapes in theirs["rows"]:
-                print(f"  repro dot {shapes} x{calls}: {flops:.4g} "
-                      f"({flops / theirs['flops']:.1%})", flush=True)
+            split = repro_by_op(cell)
+            for flops_, calls, shapes in split["rows"]:
+                print(f"  repro dot {shapes} x{calls}: {flops_:.4g} "
+                      f"({flops_ / split['flops']:.1%})", flush=True)
+    print(f"{sum(r['ok'] for r in rows)} of {len(rows)} cells ok, "
+          f"{sum(r['seconds'] for r in rows):.0f} s of capture", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
+    if not all(r["ok"] for r in rows):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -53,11 +53,13 @@ def state_of(inputs, arch: str) -> dict:
                 if k.split("/", 1)[0] == arch}
 
 
-def run_sharded(inputs, rules=None, s_max: int = 40) -> dict:
-    """The ranks' computations (``sharded_ranks.seq_parallel_steps``), given
-    60 s an arch."""
+def run_sharded(inputs, rules=None, s_max: int = 40, capture: bool = False) -> dict:
+    """The ranks' computations (``sharded_ranks.seq_parallel_steps``; with
+    ``capture``, the f32 decode step's collectives too), given 60 s an
+    arch."""
     return run_ranks(sharded_ranks.seq_parallel_steps, 8, backend="gloo",
-                     args=(str(inputs["dir"] / "port.npz"), inputs["archs"], rules, s_max),
+                     args=(str(inputs["dir"] / "port.npz"), inputs["archs"], rules, s_max,
+                           capture),
                      timeout_s=60 * len(inputs["archs"]))
 
 

@@ -1,5 +1,6 @@
 """The ``run_ranks`` targets of ``test_torch_sharded_train.py``,
-``test_torch_seq_parallel.py`` and ``test_torch_pipeline.py``, in a module of their own so that the spawned ranks import them without the test module
+``test_torch_seq_parallel.py``, ``test_torch_pipeline.py`` and
+``test_torch_vocab_lookup.py``, in a module of their own so that the spawned ranks import them without the test module
 (the ranks inherit the parent's ``sys.path``)."""
 
 import contextlib
@@ -281,12 +282,14 @@ def exact_f64(on: bool):
         yield
 
 
-def seq_parallel_steps(params_path: str, archs=None, rules=None, s_max: int = 40) -> dict:
+def seq_parallel_steps(params_path: str, archs=None, rules=None, s_max: int = 40,
+                       capture: bool = False) -> dict:
     """On each of 8 ranks, each of ``archs``' archs (``SEQ_PARALLEL``'s by
     default) on a (2, 4) mesh under ``repro``'s default plan with ``rules``
     over it, from the parameters saved in ``params_path``
     (``{arch}/{name}``, the port's state dict), in f32 and in f64
-    (``exact_f64``): (arch, dtype name) -> ``_seq_parallel_arch``."""
+    (``exact_f64``): (arch, dtype name) -> ``_seq_parallel_arch``, the f32
+    decode step captured where ``capture`` is set."""
     from repro_torch.parallel.sharding import default_plan
 
     mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
@@ -300,18 +303,20 @@ def seq_parallel_steps(params_path: str, archs=None, rules=None, s_max: int = 40
             for exact in (False, True):
                 with exact_f64(exact):
                     out[arch, "float64" if exact else "float32"] = _seq_parallel_arch(
-                        cfg, mesh, plan, state, s_max)
+                        cfg, mesh, plan, state, s_max, capture and not exact)
     return out
 
 
-def _seq_parallel_arch(cfg, mesh, plan, state: dict, s_max: int = 40) -> dict:
+def _seq_parallel_arch(cfg, mesh, plan, state: dict, s_max: int = 40,
+                       capture: bool = False) -> dict:
     """One train step (loss, gradient norm, and each parameter's gradient
     norm as the step's optimizer receives it) and a prefill's logits with
     the sequence split over ``model``; then, without the split (the dry
     run's decode plan), a prefill into caches of ``s_max`` and one decode
     step of the prompt's last token at position 32, its logits gathered
-    whole.  The model and the batch in ``torch.float32`` (f64 under
-    ``exact_f64``)."""
+    whole and, with ``capture``, its collectives as the compiled layer
+    captures them (``"decode_ops"``: region, kind, result bytes each).  The
+    model and the batch in ``torch.float32`` (f64 under ``exact_f64``)."""
     apply_updates = adamw.apply_updates
     batch = {k: v.to(torch.float32) if v.is_floating_point() else v
              for k, v in _family_batch(cfg).items()}
@@ -346,5 +351,70 @@ def _seq_parallel_arch(cfg, mesh, plan, state: dict, s_max: int = 40) -> dict:
                     token = distribute_tensor(
                         batch["tokens"][:, -1:].contiguous(), mesh,
                         p.placements(mesh, "batch", "seq"), src_data_rank=None)
-                    res["decode"] = model.decode(caches, token, 32)[0].full_tensor().numpy()
+                    if capture:
+                        # the decode step runs once, captured as the compiled layer
+                        logits = []
+                        ops = capture_graph_collectives(
+                            lambda: logits.append(model.decode(caches, token, 32)[0]),
+                            device_mesh=mesh).to_ops()
+                        res["decode_ops"] = [(op.region, op.kind, op.result_bytes)
+                                             for op in ops]
+                        logits = logits[0]
+                    else:
+                        logits = model.decode(caches, token, 32)[0]
+                    res["decode"] = logits.full_tensor().numpy()
     return res
+
+
+#: the vocab-parallel lookup's cases: (mesh shape, mesh axes, the plan's
+#: rules, vocab): the table split over ``model`` alone with the sequence
+#: whole (decode) or split (train, prefill), a vocab that ``model`` splits
+#: unevenly, and the table's ``embed`` over ``data`` or over ``("pod",
+#: "data")`` (FSDP: the columns turned into rows by one or two all-to-alls)
+LOOKUP_CASES = {
+    "vocab": ((2, 4), ("data", "model"), {"batch": "data", "vocab": "model"}, 40),
+    "vocab_seq": ((2, 4), ("data", "model"),
+                  {"batch": "data", "seq": "model", "vocab": "model"}, 40),
+    "uneven": ((2, 4), ("data", "model"), {"batch": "data", "vocab": "model"}, 38),
+    "fsdp": ((2, 4), ("data", "model"),
+             {"batch": "data", "vocab": "model", "embed": "data"}, 40),
+    "fsdp_pods": ((2, 2, 2), ("pod", "data", "model"),
+                  {"batch": ("pod", "data"), "vocab": "model", "embed": ("pod", "data")}, 40),
+}
+
+
+def lookup_cases() -> dict:
+    """On each of 8 ranks, ``context.embedding`` of each of ``LOOKUP_CASES``
+    (an f32 (vocab, 16) table, 8 x 8 tokens, both seeded) against the
+    whole table's lookup: case -> (whether the forward is bit-equal,
+    whether it lies as the plan places the residual stream, the largest
+    distance of the table's gradient from the whole table's, for the loss
+    ``sum(x * w)`` with a seeded ``w``)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.blocks import ACT
+    from repro_torch.parallel.context import embedding
+
+    out = {}
+    for name, (shape, axes, rules, vocab) in LOOKUP_CASES.items():
+        g = torch.Generator().manual_seed(7)
+        table = torch.randn(vocab, 16, generator=g)
+        tokens = torch.randint(0, vocab, (8, 8), generator=g)
+        w = torch.randn(8, 8, 16, generator=g)
+        whole = table.clone().requires_grad_()
+        (whole[tokens] * w).sum().backward()
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+        plan = ShardingPlan(rules=rules)
+        with parallel_context(mesh, plan):
+            t = distribute_tensor(table, mesh, plan.placements(mesh, "vocab", "embed"),
+                                  src_data_rank=None).requires_grad_()
+            ids = distribute_tensor(tokens, mesh, plan.placements(mesh, "batch", "seq"),
+                                    src_data_rank=None)
+            x = embedding(t, ids, ACT)
+            placed = tuple(x.placements) == tuple(plan.placements(mesh, *ACT))
+            got = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+            (got * w).sum().backward()
+            grad = t.grad.full_tensor()
+        out[name] = (bool(torch.equal(got.detach(), table[tokens])), placed,
+                     float((grad - whole.grad).abs().max()))
+    return out

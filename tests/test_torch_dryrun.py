@@ -116,8 +116,10 @@ def test_reduced_train_step_captures_with_regions(small_cell):
 
 def test_flops_and_wire_bytes_beside_repro(small_cell):
     """The port's step on DTensor against repro's on GSPMD, a device: the
-    port replicates products GSPMD splits (an MLP product keeps the whole
-    d_ff) and gathers weights, so it does at least repro's work."""
+    products are placed as GSPMD places them (the MLP's on each rank's
+    slice of d_ff, the embedding looked up in each rank's vocab rows), so
+    the port does repro's work exactly; the wire bytes are printed, not
+    held (DTensor's backward collectives are not XLA's)."""
     record, _, _ = small_cell
     flops, wire, n_ops = (float(x) for x in run_with_devices(
         _REPRO_SMALL).split("REPRO", 1)[1].split())
@@ -125,7 +127,7 @@ def test_flops_and_wire_bytes_beside_repro(small_cell):
     print(f"FLOPs a device: port {port[0]:.0f}, repro {flops:.0f}; wire bytes a "
           f"device: port {port[1]:.0f} in {record['collectives']['n_ops']} "
           f"collectives, repro {wire:.0f} in {n_ops:.0f}")
-    assert port[0] >= flops > 0 and port[1] > 0
+    assert port[0] == flops > 0 and port[1] > 0
 
 
 def test_inspect_cell_top_bytes(small_cell):

@@ -19,7 +19,10 @@ plan places them.  The ranks are spawned once for the file
 against ``repro``'s sharded step, prefill and decode under the same plan
 on 8 forced host devices (f64 within 1e-9 relative, each parameter's
 gradient norm among them; f32 by ``train_parity``'s rule) and against the
-port's one-device computations.
+port's one-device computations.  deepseek-coder-33b's q/k/v and gemma-2b's
+K/V decode projections contract each ``model`` rank's slice of d_model
+(FSDP over ``data``'s 2 ranks divides ``model``'s 4), and the captured
+decode step shows their reductions.
 """
 
 import pytest
@@ -41,7 +44,7 @@ def inputs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def sharded(inputs):
-    return SP.run_sharded(inputs, RULES, S_MAX)
+    return SP.run_sharded(inputs, RULES, S_MAX, capture=True)
 
 
 @pytest.fixture(scope="module")
@@ -73,6 +76,31 @@ def test_the_plan_keeps_the_heads_whole():
             assert placement.heads == "kv_rows"
         assert placement.cache_slices == (plan.get("kv_seq") == "model"), arch
     assert 3 * S_MAX // 4 > 32
+
+
+#: the archs whose decode contracts each ``model`` rank's slice of d_model
+#: in the projections of the whole heads (``context.contraction_slices``:
+#: FSDP over ``data``'s 2 ranks divides ``model``'s 4), with the query heads'
+#: too where those are whole
+SLICED = {"deepseek-coder-33b": ("q", "k", "v"), "gemma-2b": ("k", "v")}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_reduces_the_sliced_projections(sharded, arch):
+    """The sliced projections ran: the captured decode step all-reduces
+    each one's partial sums in ``attn`` over ``model``, as GSPMD does (f32:
+    a data rank's 4 rows x the heads x head_dim); the others' products
+    take no such reduction.  Their logits are held by the parity tests."""
+    cfg = sharded_ranks.seq_parallel_config(arch, sharded_ranks.HEADS_WHOLE)
+    heads = {"q": cfg.n_heads, "k": cfg.n_kv_heads, "v": cfg.n_kv_heads}
+    reduced = [b for region, kind, b in sharded[arch, "float32"]["decode_ops"]
+               if region == "attn" and kind == "all-reduce"]
+    for name in ("q", "k", "v"):
+        partial = 8 // 2 * heads[name] * cfg.head_dim * 4
+        want = cfg.n_layers if name in SLICED.get(arch, ()) else 0
+        assert reduced.count(partial) >= want, (name, partial, reduced)
+    kv = 8 // 2 * cfg.n_kv_heads * cfg.head_dim * 4
+    assert reduced.count(kv) == 2 * cfg.n_layers * (arch in SLICED), (kv, reduced)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
